@@ -1,0 +1,95 @@
+"""Build the CUDA kernels in ``src/repro_torch/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes ``extern "C"`` entry points that return a
+``cudaError_t`` as an int. It is compiled by ``nvcc`` for ``sm_90a`` into
+``build/kernels/<name>-<hash>.so`` at the repository root, where the hash
+covers the source and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. :func:`build` starts one ``nvcc`` per
+source, all at once, and waits for every one of them.
+
+Nothing here runs at import: the CPU tests import every module and have no
+``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+KERNELS = ("decode_attention", "flash_attention")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names=KERNELS) -> dict:
+    """Compile every kernel in ``names`` whose library is missing.
+
+    Returns ``{name: {"path", "seconds", "log"}}``; ``log`` holds what
+    ``nvcc -Xptxas -v`` printed (empty when the library was already built).
+    Raises if any compile fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    report = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            report[name] = {"path": str(out), "seconds": 0.0, "log": ""}
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        report[name] = {"path": str(out), "seconds": seconds, "log": log}
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return report
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built first if it is missing."""
+    return ctypes.CDLL(build((name,))[name]["path"])
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

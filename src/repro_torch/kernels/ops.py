@@ -1,0 +1,88 @@
+"""Model-layout wrappers around the Hopper kernels.
+
+  flash_attention(q, k, v, ...)     — (B, Sq, H, D) × (B, Sk, KH, D) → (B, Sq, H, D)   (K2)
+  decode_attention(q, k, v, valid)  — (B, H, D) one token vs the (B, S, KH, D) cache  (K1)
+  combine_decode_partials(...)      — logsumexp combine of K1 partials from shards
+
+A wrapper runs its kernel's plain PyTorch version for tensors on the CPU
+(the tests) and launches the CUDA kernel for tensors on the card, raising
+if the kernel does not take them; there is no fallback from one to the
+other. ``LAUNCHES`` counts kernel launches per wrapper, so a run can show
+that its main path went through the kernels. Both kernels read the
+tensors in the model's layout through strides: no wrapper transposes.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+LAUNCHES = {"decode_attention": 0, "flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_offset: int = 0,
+    window: int = 0,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal attention forward; q (B, Sq, H, D), k/v (B, Sk, KH, D)."""
+    scale = softmax_scale if softmax_scale is not None else 1.0 / q.shape[-1] ** 0.5
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, q_offset=q_offset, window=window, scale=scale)
+    out = flash_attention_cuda(q, k, v, q_offset=q_offset, window=window, scale=scale)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: torch.Tensor,
+    softmax_scale: Optional[float] = None,
+    return_partials: bool = False,
+):
+    """One-token attention; q (B, H, D), k/v (B, S, KH, D), valid (B, S).
+
+    Returns the output in q's dtype, or with ``return_partials`` the fp32
+    partials ``(acc (B, H, D), m (B, H), l (B, H))``.
+    """
+    scale = softmax_scale if softmax_scale is not None else 1.0 / q.shape[-1] ** 0.5
+    normalize = not return_partials
+    if q.device.type == "cpu":
+        out, m, l = decode_attention_plain(q, k, v, valid, scale=scale, normalize=normalize)
+    else:
+        if valid.dtype == torch.bool:
+            valid = valid.to(torch.int32)
+        out, m, l = decode_attention_cuda(q, k, v, valid, scale=scale, normalize=normalize)
+        LAUNCHES["decode_attention"] += 1
+    if return_partials:
+        return out, m, l
+    return out.to(q.dtype)
+
+
+def combine_decode_partials(outs, ms, ls):
+    """logsumexp-combine flash-decode partials from sequence shards.
+
+    outs: list of (B, H, D) unnormalised; ms/ls: (B, H).
+    """
+    m_g = torch.stack(ms).amax(dim=0)
+    num = 0.0
+    den = 0.0
+    for o, m, l in zip(outs, ms, ls):
+        w = torch.exp(m - m_g)
+        num = num + o * w[..., None]
+        den = den + l * w
+    return num / den.clamp_min(1e-30)[..., None]

@@ -1,0 +1,251 @@
+"""Grouped-query attention with RoPE, qk-norm, sliding window, KV caching.
+
+Port of ``repro/models/attention.py``. Full-sequence implementations
+(``RunConfig.attention_impl``):
+
+* ``xla``      — plain softmax(QKᵀ)V; materialises the (Sq, Skv) scores.
+* ``chunked``  — flash-style loops over q and kv chunks with a running max
+                 and normaliser; never materialises the full score matrix.
+* ``pallas``   — the K2 flash-attention kernel (``kernels/ops.py``): the
+                 CUDA kernel on the card, its plain version on the CPU.
+
+The decode step writes into a ring-buffer KV cache (capacity = sliding
+window when set) and takes a per-slot position vector and an optional
+active mask, so one call serves a continuous batch whose rows sit at
+different cache positions. ``RunConfig.decode_attention_impl``: ``kernel``
+is K1 flash-decode (CUDA on the card, plain on the CPU); ``einsum`` is the
+masked-softmax reference path. The JAX package's ``*_interpret`` values
+name its Pallas interpreter and are not accepted here.
+
+The JAX package's ``pad_attention_heads_to`` only helps shard heads over a
+mesh and does not change any output; the port does not shard, so it
+ignores it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.kernels import ops
+from repro_torch.models.common import ParamDef, apply_rope, causal_mask, norm_def, nrm, rms_norm
+
+NEG_INF = -1e30
+
+
+def attn_defs(cfg: ModelConfig) -> dict:
+    hd = cfg.head_dim_
+    defs = {
+        "wq": ParamDef((cfg.d_model, cfg.num_heads, hd), nrm()),
+        "wk": ParamDef((cfg.d_model, cfg.num_kv_heads, hd), nrm()),
+        "wv": ParamDef((cfg.d_model, cfg.num_kv_heads, hd), nrm()),
+        "wo": ParamDef((cfg.num_heads, hd, cfg.d_model), nrm(fan_in_axis=2)),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = norm_def(hd)
+        defs["k_norm"] = norm_def(hd)
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+
+def _split_gqa(q: torch.Tensor, num_kv: int) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, KH, G, D)."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, num_kv, h // num_kv, d)
+
+
+def _xla_attention(q, k, v, *, q_offset, window, scale):
+    """Reference/naive path. q: (B,Sq,H,D); k,v: (B,Skv,KH,D)."""
+    kh = k.shape[2]
+    qg = _split_gqa(q, kh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    mask = causal_mask(q.shape[1], k.shape[1], q_offset, window, q.device)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(q.shape)
+
+
+def _chunked_attention(q, k, v, *, q_offset, window, scale, q_chunk, kv_chunk):
+    """Flash-style attention: loop q blocks × kv blocks, O(chunk²) memory."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qc = min(q_chunk, sq)
+    kc = min(kv_chunk, skv)
+    dev = q.device
+    outs = []
+    for q0 in range(0, sq, qc):
+        qi = _split_gqa(q[:, q0:q0 + qc], kh).float()  # (B,qc',KH,G,D)
+        qp = torch.arange(q0, q0 + qi.shape[1], device=dev) + q_offset
+        m = torch.full((b, kh, g, qi.shape[1]), NEG_INF, device=dev)
+        l = torch.zeros((b, kh, g, qi.shape[1]), device=dev)
+        acc = torch.zeros((b, kh, g, qi.shape[1], d), device=dev)
+        for k0 in range(0, skv, kc):
+            ki, vi = k[:, k0:k0 + kc].float(), v[:, k0:k0 + kc].float()
+            kp = torch.arange(k0, k0 + ki.shape[1], device=dev)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qi, ki) * scale
+            mask = kp[None, :] <= qp[:, None]
+            if window:
+                mask &= kp[None, :] > qp[:, None] - window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vi)
+            m = m_new
+        out = acc / l[..., None].clamp_min(1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, qi.shape[1], h, d))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def multihead_attention(run: RunConfig, q, k, v, *, q_offset=0, window=0):
+    """Dispatch on the configured implementation. Shapes as in _xla_attention."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    impl = run.attention_impl
+    if impl == "xla":
+        return _xla_attention(q, k, v, q_offset=q_offset, window=window, scale=scale)
+    if impl == "chunked":
+        return _chunked_attention(
+            q, k, v, q_offset=q_offset, window=window, scale=scale,
+            q_chunk=run.attention_chunk, kv_chunk=run.attention_chunk,
+        )
+    if impl == "pallas":
+        return ops.flash_attention(q, k, v, q_offset=q_offset, window=window, softmax_scale=scale)
+    raise ValueError(f"unknown attention_impl {impl!r} (the port has xla, chunked, pallas)")
+
+
+# ---------------------------------------------------------------------------
+# Block-level apply (projections + rope + attention [+ cache])
+# ---------------------------------------------------------------------------
+
+
+def _project_qkv(cfg: ModelConfig, params, x, positions):
+    dt = getattr(torch, cfg.compute_dtype)
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    # einsum "bsd,dhk->bshk" as one matmul on the flattened head axis
+    q = (x @ params["wq"].to(dt).flatten(1)).view(b, s, cfg.num_heads, hd)
+    k = (x @ params["wk"].to(dt).flatten(1)).view(b, s, cfg.num_kv_heads, hd)
+    v = (x @ params["wv"].to(dt).flatten(1)).view(b, s, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(cfg: ModelConfig, params, out):
+    """einsum "bshk,hkd->bsd"."""
+    dt = getattr(torch, cfg.compute_dtype)
+    return out.flatten(2) @ params["wo"].to(dt).flatten(0, 1)
+
+
+def attn_apply_full(cfg: ModelConfig, run: RunConfig, params: dict, x, positions, return_kv: bool = False):
+    """Training / prefill attention over the full sequence.
+
+    x: (B, S, D) post-norm residual input; positions: (S,) or (B, S).
+    """
+    q, k, v = _project_qkv(cfg, params, x, positions)
+    out = multihead_attention(run, q, k, v, q_offset=0, window=cfg.sliding_window)
+    y = _out_proj(cfg, params, out)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
+def attn_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
+    cap = cache_capacity(cfg, max_len)
+    shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_fill_cache(cfg: ModelConfig, cache: dict, k, v) -> dict:
+    """Write prefill K/V (B, S, KH, D) into a fresh cache, in place (ring-aware)."""
+    cap = cache["k"].shape[1]
+    s = k.shape[1]
+    if s >= cap:  # keep the trailing window, ring-ordered
+        # position p lands in slot p % cap
+        slots = torch.arange(s - cap, s, device=k.device) % cap
+        order = torch.argsort(slots)
+        cache["k"].copy_(k[:, s - cap:][:, order])
+        cache["v"].copy_(v[:, s - cap:][:, order])
+    else:
+        cache["k"][:, :s].copy_(k)
+        cache["v"][:, :s].copy_(v)
+    return cache
+
+
+def attn_apply_step(
+    cfg: ModelConfig,
+    run: RunConfig,
+    params: dict,
+    cache: dict,
+    x,
+    pos,
+    active: Optional[torch.Tensor] = None,
+):
+    """Single-token decode. x: (B, 1, D); pos: (B,) tokens so far *per
+    slot*; active: optional (B,) bool. Writes the new K/V into ``cache`` in
+    place and returns the attention block's output (B, 1, D).
+
+    The JAX package writes with an elementwise select over the whole cache
+    (``iota == slot``) and hands parked rows ``pos = -1``, which under a
+    sliding window lands on the last ring slot (ROADMAP C4). Here the
+    active rows are written in place at their slot; a parked row writes its
+    slot's old value back, so it neither writes nor, having no valid key,
+    attends.
+    """
+    dt = getattr(torch, cfg.compute_dtype)
+    b = x.shape[0]
+    q, k, v = _project_qkv(cfg, params, x, pos[:, None])
+
+    cache_k, cache_v = cache["k"], cache["v"]
+    cap = cache_k.shape[1]
+    slot = pos % cap if cfg.sliding_window else pos.clamp_max(cap - 1)
+    rows = torch.arange(b, device=x.device)
+    k_new, v_new = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
+    if active is not None:
+        keep = ~active[:, None, None]
+        k_new = torch.where(keep, cache_k[rows, slot], k_new)
+        v_new = torch.where(keep, cache_v[rows, slot], v_new)
+    cache_k[rows, slot] = k_new
+    cache_v[rows, slot] = v_new
+
+    # validity, per row: slots < pos+1 filled (full cache: monotone; ring:
+    # all once wrapped) — (B, cap), the mask shape K1 consumes
+    idx = torch.arange(cap, device=x.device)
+    valid = idx[None, :] <= slot[:, None]
+    if cfg.sliding_window:
+        valid |= pos[:, None] >= cap
+    if active is not None:
+        valid &= active[:, None]
+
+    scale = 1.0 / cfg.head_dim_**0.5
+    impl = run.decode_attention_impl
+    if impl == "kernel":
+        out = ops.decode_attention(q[:, 0], cache_k, cache_v, valid, softmax_scale=scale)
+        out = out[:, None].to(dt)  # (B, H, D) -> (B, 1, H, D)
+    elif impl == "einsum":
+        qg = _split_gqa(q, cfg.num_kv_heads)  # (B,1,KH,G,D)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), cache_k.float()) * scale
+        scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cache_v.float())
+        out = out.reshape(q.shape).to(dt)
+    else:
+        raise ValueError(f"unknown decode_attention_impl {impl!r} (the port has einsum, kernel)")
+    return _out_proj(cfg, params, out)

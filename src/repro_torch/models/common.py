@@ -1,0 +1,144 @@
+"""Shared building blocks: declarative params, norms, RoPE, SwiGLU MLP.
+
+Port of ``repro/models/common.py``. A parameter is declared once as a
+:class:`ParamDef` (shape + init); :func:`build_params` materialises a tree
+of them on a ``torch.Generator``. The JAX package's logical sharding axes
+are dropped: the port does not shard.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+
+# init(generator, shape, device) -> fp32 tensor
+InitFn = Callable[[torch.Generator, Sequence[int], torch.device], torch.Tensor]
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    init: InitFn
+
+
+def nrm(scale: float = 1.0, fan_in_axis: int = 0) -> InitFn:
+    """Normal init with 1/sqrt(fan_in) scaling (fan-in read from shape)."""
+
+    def init(gen, shape, device):
+        fan_in = shape[fan_in_axis]
+        x = torch.randn(tuple(shape), generator=gen, device=device)
+        return x * (scale / math.sqrt(max(1, fan_in)))
+
+    return init
+
+
+def trunc_nrm(std: float) -> InitFn:
+    """``std`` times a standard normal truncated to [-2, 2] (inverse-CDF sampling)."""
+
+    def init(gen, shape, device):
+        lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
+        u = torch.rand(tuple(shape), generator=gen, device=device) * (hi - lo) + lo
+        x = torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
+        return x.clamp_(-2.0, 2.0) * std
+
+    return init
+
+
+def zeros_init(gen, shape, device):
+    return torch.zeros(tuple(shape), device=device)
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def build_params(defs, gen: torch.Generator, device, dtype=torch.float32):
+    """Materialise a (nested dict / list) tree of ParamDefs, in tree order."""
+    if is_def(defs):
+        return defs.init(gen, defs.shape, device).to(dtype)
+    if isinstance(defs, dict):
+        return {k: build_params(v, gen, device, dtype) for k, v in defs.items()}
+    return [build_params(v, gen, device, dtype) for v in defs]
+
+
+def param_count(defs) -> int:
+    if is_def(defs):
+        return math.prod(defs.shape)
+    items = defs.values() if isinstance(defs, dict) else defs
+    return sum(param_count(v) for v in items)
+
+
+# ---------------------------------------------------------------------------
+# Numerics helpers
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+def norm_def(dim: int) -> ParamDef:
+    # zero-centred scale (`1 + g`), standard for stable bf16 training.
+    return ParamDef((dim,), zeros_init)
+
+
+# --- rotary embeddings ------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exponent)  # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs  # (..., S, D/2)
+    angles = angles[..., None, :]  # head axis
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- SwiGLU MLP ---------------------------------------------------------------
+
+
+def mlp_defs(d_model: int, d_ff: int) -> dict:
+    return {
+        "gate": ParamDef((d_model, d_ff), nrm()),
+        "up": ParamDef((d_model, d_ff), nrm()),
+        "down": ParamDef((d_ff, d_model), nrm()),
+    }
+
+
+def mlp_apply(params: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    g = x @ params["gate"].to(compute_dtype)
+    u = x @ params["up"].to(compute_dtype)
+    return (F.silu(g) * u) @ params["down"].to(compute_dtype)
+
+
+# --- misc ---------------------------------------------------------------------
+
+
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return logits
+    return cap * torch.tanh(logits / cap)
+
+
+def causal_mask(sq: int, skv: int, q_offset: int = 0, window: int = 0, device=None) -> torch.Tensor:
+    """(sq, skv) boolean mask. True = attend. Supports sliding window."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m

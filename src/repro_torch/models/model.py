@@ -1,0 +1,190 @@
+"""Model assembly: embedding → layer loop → LM head.
+
+Port of ``repro/models/model.py`` for stacks of attention blocks with a
+dense SwiGLU FFN (the qwen3 family). The JAX package's ``lax.scan`` over
+block periods becomes a Python loop over layers; parameters are a dict
+with a ``layers`` list, one dict per layer, in the JAX package's weight
+layouts (``wq (D, H, hd)``, ``wo (H, hd, D)``). MoE, Mamba, mLSTM, sLSTM
+blocks and modality frontends raise "not ported".
+
+The decode cache is ``{"pos": (B,) int64, "k": (L, B, cap, KH, hd),
+"v": ...}``: one tensor per side for all layers, so a serving slot is one
+``index_copy_`` on dim 1. ``decode_step`` updates it in place.
+
+Three entry points mirror the workload kinds:
+  forward()      — training forward (logits + aux metrics)
+  prefill()      — forward + KV cache construction
+  decode_step()  — one token with cache
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (
+    ParamDef,
+    build_params,
+    mlp_apply,
+    mlp_defs,
+    norm_def,
+    nrm,
+    param_count,
+    rms_norm,
+    softcap,
+    trunc_nrm,
+)
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for i in range(cfg.num_layers):
+        kind = cfg.layer_kind(i)
+        if kind != "attn" or cfg.layer_is_moe(i):
+            what = "moe" if cfg.layer_is_moe(i) else kind
+            raise NotImplementedError(f"{cfg.name}: {what} blocks are not ported to repro_torch yet")
+    if cfg.frontend:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported to repro_torch yet")
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+
+
+def _block_defs(cfg: ModelConfig) -> dict:
+    d = {"norm": norm_def(cfg.d_model), "attn": attn.attn_defs(cfg)}
+    if cfg.d_ff:
+        d["ffn_norm"] = norm_def(cfg.d_model)
+        d["ffn"] = mlp_defs(cfg.d_model, cfg.d_ff)
+    return d
+
+
+def model_defs(cfg: ModelConfig) -> dict:
+    _check_ported(cfg)
+    defs = {
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), trunc_nrm(0.02)),
+        "layers": [_block_defs(cfg) for _ in range(cfg.num_layers)],
+        "final_norm": norm_def(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size), nrm())
+    return defs
+
+
+def init_model(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32) -> dict:
+    """Random weights from ``gen``, on ``gen``'s device. Serving may hold
+    them in the compute dtype: that gives the values the JAX package's
+    cast-at-use gives."""
+    return build_params(model_defs(cfg), gen, gen.device, dtype)
+
+
+def count_params_exact(cfg: ModelConfig) -> int:
+    return param_count(model_defs(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Blocks, embedding, head
+# ---------------------------------------------------------------------------
+
+
+def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def _ffn(cfg, blk, h):
+    if "ffn" in blk:
+        hn = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
+        h = h + mlp_apply(blk["ffn"], hn, _compute_dtype(cfg))
+    return h
+
+
+def _embed(cfg, params, tokens):
+    return F.embedding(tokens, params["embed"].to(_compute_dtype(cfg)))
+
+
+def _head(cfg, params, h):
+    dt = _compute_dtype(cfg)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    w = params["embed"].to(dt).T if cfg.tie_embeddings else params["lm_head"].to(dt)
+    return softcap(h @ w, cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor):
+    """Training/eval forward. tokens: (B, S). Returns (logits, aux)."""
+    h = _embed(cfg, params, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    for blk in params["layers"]:
+        hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+        h = h + attn.attn_apply_full(cfg, run, blk["attn"], hn, positions)
+        h = _ffn(cfg, blk, h)
+    zero = torch.zeros((), device=h.device)
+    return _head(cfg, params, h), {"moe_aux": zero, "moe_drop_frac": zero}
+
+
+def prefill(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor, max_len: int):
+    """Forward + cache build. Returns (last-position logits (B, 1, V), cache)."""
+    h = _embed(cfg, params, tokens)
+    b, seq = tokens.shape
+    positions = torch.arange(seq, device=h.device)[None, :]
+    cache = init_cache(cfg, b, max_len, h.device)
+    cache["pos"].fill_(seq)
+    for i, blk in enumerate(params["layers"]):
+        hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+        y, (k, v) = attn.attn_apply_full(cfg, run, blk["attn"], hn, positions, return_kv=True)
+        attn.attn_fill_cache(cfg, {"k": cache["k"][i], "v": cache["v"][i]}, k, v)
+        h = _ffn(cfg, blk, h + y)
+    return _head(cfg, params, h[:, -1:]), cache
+
+
+def decode_step(
+    cfg: ModelConfig,
+    run: RunConfig,
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,
+    active: Optional[torch.Tensor] = None,
+):
+    """One decode step. tokens: (B, 1). Returns (logits (B, 1, V), cache).
+
+    ``cache["pos"]`` is a per-slot (B,) position vector, so rows of the
+    batch may sit at different cache positions (continuous batching).
+    ``active`` is an optional (B,) bool mask for ragged batches: inactive
+    slots neither advance their position nor overwrite their cache slot
+    (their logits are garbage the caller ignores). The cache is updated in
+    place and returned.
+    """
+    h = _embed(cfg, params, tokens)
+    pos = cache["pos"]
+    for i, blk in enumerate(params["layers"]):
+        hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        h = h + attn.attn_apply_step(cfg, run, blk["attn"], layer_cache, hn, pos, active)
+        h = _ffn(cfg, blk, h)
+    logits = _head(cfg, params, h)
+    if active is None:
+        pos += 1
+    else:
+        pos += active.to(pos.dtype)
+    return logits, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    """Zero-filled cache (decode-from-scratch, or a serving arena)."""
+    _check_ported(cfg)
+    cap = attn.cache_capacity(cfg, max_len)
+    shape = (cfg.num_layers, batch, cap, cfg.num_kv_heads, cfg.head_dim_)
+    dt = _compute_dtype(cfg)
+    return {
+        "pos": torch.zeros((batch,), dtype=torch.long, device=device),
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+    }

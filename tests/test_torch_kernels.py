@@ -1,0 +1,254 @@
+"""K1 (flash-decode) and K2 (flash-attention forward) of the PyTorch port
+against the JAX package.
+
+On the CPU the port's wrappers run each kernel's plain PyTorch version;
+here it is held against the Pallas kernel in interpret mode and against
+the jnp oracle in ``repro/kernels/ref.py``, on the same numpy inputs and
+to the tolerances of ``tests/test_kernels.py`` (fp32 2e-5; bf16 3e-2 for
+decode, 2e-2 for flash). The ``gpu``-marked tests hold the CUDA kernels
+against their plain versions on the card and skip elsewhere.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain
+
+try:
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+except ImportError:  # the card's machine has no JAX: only the gpu tests run there
+    jnp = jops = jref = None
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True)
+def _jax_reference(request):
+    if jnp is None and request.node.get_closest_marker("gpu") is None:
+        pytest.skip("JAX is not installed: the reference side of this test is missing")
+
+
+def _pair(rng, *shape, dtype="float32"):
+    """The same values as a JAX array and a torch CPU tensor."""
+    a = rng.standard_normal(shape).astype(np.float32)
+    return jnp.asarray(a, getattr(jnp, dtype)), torch.from_numpy(a).to(DTYPES[dtype])
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _err(a, b):
+    return float(np.abs(_np(a) - _np(b)).max())
+
+
+FLASH_CASES = [
+    # (B, Sq, Sk, H, KH, D, window, q_offset, bq, bk)  — as tests/test_kernels.py
+    (2, 128, 128, 4, 2, 64, 0, 0, 64, 64),
+    (1, 100, 256, 8, 8, 128, 0, 156, 64, 64),  # ragged + offset (prefill tail)
+    (2, 256, 256, 6, 2, 64, 64, 0, 64, 64),  # sliding window
+    (1, 64, 64, 2, 1, 256, 0, 0, 32, 32),  # big head dim
+    (1, 33, 65, 4, 4, 64, 0, 0, 32, 32),  # non-divisible seq (padding)
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas_and_ref(case, dtype):
+    B, Sq, Sk, H, KH, D, win, off, bq, bk = case
+    rng = np.random.default_rng(1)
+    qj, qt = _pair(rng, B, Sq, H, D, dtype=dtype)
+    kj, kt = _pair(rng, B, Sk, KH, D, dtype=dtype)
+    vj, vt = _pair(rng, B, Sk, KH, D, dtype=dtype)
+    out = ops.flash_attention(qt, kt, vt, q_offset=off, window=win)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    pallas = jops.flash_attention(qj, kj, vj, True, off, win, None, bq, bk, True)
+    ref = jref.flash_attention_ref(qj, kj, vj, causal=True, window=win, q_offset=off)
+    assert _err(out, pallas) < tol
+    assert _err(out, ref) < tol
+
+
+def test_flash_window_first_block_fully_masked():
+    """ROADMAP C2: with a window and a query offset, a row's first visited
+    kv block can be fully masked. The port zeroes masked probabilities
+    explicitly, so its result matches the oracle with no phantom mass."""
+    B, Sq, Sk, H, KH, D, win, off = 1, 64, 192, 4, 2, 64, 40, 128
+    rng = np.random.default_rng(2)
+    qj, qt = _pair(rng, B, Sq, H, D)
+    kj, kt = _pair(rng, B, Sk, KH, D)
+    vj, vt = _pair(rng, B, Sk, KH, D)
+    out = ops.flash_attention(qt, kt, vt, q_offset=off, window=win)
+    ref = jref.flash_attention_ref(qj, kj, vj, causal=True, window=win, q_offset=off)
+    pallas = jops.flash_attention(qj, kj, vj, True, off, win, None, 32, 32, True)
+    assert _err(out, ref) < 2e-5
+    assert _err(out, pallas) < 2e-5
+
+
+DECODE_CASES = [
+    # (B, S, H, KH, D, block_k of the Pallas kernel) — as tests/test_kernels.py
+    (2, 512, 8, 2, 64, 128),
+    (3, 300, 4, 4, 128, 128),  # padding + MHA
+    (1, 1024, 16, 2, 64, 256),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_pallas_and_ref(case, dtype):
+    B, S, H, KH, D, bk = case
+    rng = np.random.default_rng(3)
+    qj, qt = _pair(rng, B, H, D, dtype=dtype)
+    kj, kt = _pair(rng, B, S, KH, D, dtype=dtype)
+    vj, vt = _pair(rng, B, S, KH, D, dtype=dtype)
+    valid = rng.random((B, S)) > 0.3
+    out = ops.decode_attention(qt, kt, vt, torch.from_numpy(valid))
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    pallas = jops.decode_attention(qj, kj, vj, jnp.asarray(valid), block_k=bk, interpret=True)
+    ref = jref.decode_attention_ref(qj, kj, vj, jnp.asarray(valid))
+    assert _err(out, pallas) < tol
+    assert _err(out, ref) < tol
+
+
+@pytest.mark.parametrize("S,bk", [(256, 128), (130, 64)])  # exact blocks | remainder block
+def test_decode_ring_full_capacity(S, bk):
+    B, H, KH, D = 2, 4, 2, 64
+    rng = np.random.default_rng(4)
+    qj, qt = _pair(rng, B, H, D)
+    kj, kt = _pair(rng, B, S, KH, D)
+    vj, vt = _pair(rng, B, S, KH, D)
+    valid = np.ones((B, S), bool)
+    out = ops.decode_attention(qt, kt, vt, torch.from_numpy(valid))
+    assert _err(out, jops.decode_attention(qj, kj, vj, jnp.asarray(valid), block_k=bk, interpret=True)) < 2e-5
+    assert _err(out, jref.decode_attention_ref(qj, kj, vj, jnp.asarray(valid))) < 2e-5
+
+
+def test_decode_valid_only_in_remainder_block():
+    B, S, H, KH, D, bk = 2, 190, 4, 2, 64, 64  # 3 Pallas blocks, the last holds 62 keys
+    rng = np.random.default_rng(5)
+    qj, qt = _pair(rng, B, H, D)
+    kj, kt = _pair(rng, B, S, KH, D)
+    vj, vt = _pair(rng, B, S, KH, D)
+    idx = np.arange(S)
+    valid = np.stack([idx >= 2 * bk, idx >= S - 5])
+    out = ops.decode_attention(qt, kt, vt, torch.from_numpy(valid))
+    assert _err(out, jops.decode_attention(qj, kj, vj, jnp.asarray(valid), block_k=bk, interpret=True)) < 2e-5
+    assert _err(out, jref.decode_attention_ref(qj, kj, vj, jnp.asarray(valid))) < 2e-5
+
+
+def test_decode_all_invalid_row_returns_zero():
+    """The kernel contract (ROADMAP C3): a row with no valid key gives an
+    exact zero output and l = 0, as the Pallas kernel does; the einsum/ref
+    path spreads it uniformly instead, so only the valid row is compared
+    with the oracle."""
+    B, S, H, KH, D = 2, 128, 4, 2, 64
+    rng = np.random.default_rng(6)
+    qj, qt = _pair(rng, B, H, D)
+    kj, kt = _pair(rng, B, S, KH, D)
+    vj, vt = _pair(rng, B, S, KH, D)
+    valid = np.stack([np.ones(S, bool), np.zeros(S, bool)])
+    vt_mask = torch.from_numpy(valid)
+    out = ops.decode_attention(qt, kt, vt, vt_mask)
+    assert bool(torch.isfinite(out).all())
+    assert float(out[1].abs().max()) == 0.0
+    assert _err(out[0], jref.decode_attention_ref(qj, kj, vj, jnp.asarray(valid))[0]) < 2e-5
+    acc, m, l = ops.decode_attention(qt, kt, vt, vt_mask, return_partials=True)
+    pacc, pm, pl = jops.decode_attention(qj, kj, vj, jnp.asarray(valid), block_k=64,
+                                         return_partials=True, interpret=True)
+    assert float(l[1].max()) == 0.0 and float(acc[1].abs().max()) == 0.0
+    for a, b in ((acc, pacc), (m, pm), (l, pl)):
+        assert _err(a[0], b[0]) < 2e-5 * max(1.0, float(np.abs(_np(b[0])).max()))
+    assert _err(m[1], pm[1]) == 0.0  # both keep the -1e30 surrogate of -inf
+
+
+def test_decode_partials_combine():
+    """Shard the cache in two, combine the partials, compare to the whole."""
+    B, S, H, KH, D = 2, 256, 4, 2, 64
+    rng = np.random.default_rng(7)
+    qj, qt = _pair(rng, B, H, D)
+    kj, kt = _pair(rng, B, S, KH, D)
+    vj, vt = _pair(rng, B, S, KH, D)
+    valid = torch.ones((B, S), dtype=torch.bool)
+    parts = [ops.decode_attention(qt, kt[:, sl], vt[:, sl], valid[:, sl], return_partials=True)
+             for sl in (slice(0, S // 2), slice(S // 2, S))]
+    combined = ops.combine_decode_partials(*zip(*parts))
+    exp = jref.decode_attention_ref(qj, kj, vj, jnp.ones((B, S), bool))
+    assert _err(combined, exp) < 2e-5
+    jparts = [jops.decode_attention(qj, kj[:, sl], vj[:, sl], jnp.ones((B, S // 2), bool),
+                                    return_partials=True, interpret=True)
+              for sl in (slice(0, S // 2), slice(S // 2, S))]
+    assert _err(combined, jops.combine_decode_partials(*zip(*jparts))) < 2e-5
+
+
+def test_wrappers_never_launch_on_cpu():
+    ops.reset_launches()
+    rng = np.random.default_rng(8)
+    _, q = _pair(rng, 1, 8, 2, 64)
+    _, k = _pair(rng, 1, 8, 2, 64)
+    ops.flash_attention(q, k, k)
+    ops.decode_attention(q[:, 0], k, k, torch.ones((1, 8), dtype=torch.bool))
+    assert ops.LAUNCHES == {"decode_attention": 0, "flash_attention": 0}
+
+
+# ---------------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on(dev, rng, *shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, DTYPES[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_on_card(cuda, case, dtype):
+    B, Sq, Sk, H, KH, D, win, off, _, _ = case
+    rng = np.random.default_rng(9)
+    q, k, v = (_on(cuda, rng, B, s, h, D, dtype=dtype) for s, h in ((Sq, H), (Sk, KH), (Sk, KH)))
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, q_offset=off, window=win)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    exp = flash_attention_plain(q, k, v, q_offset=off, window=win, scale=D**-0.5)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    assert float((out.float() - exp.float()).abs().max()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CASES + [(8, 2050, 16, 8, 128, 512)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_decode_kernel_matches_plain_on_card(cuda, case, dtype, normalize):
+    B, S, H, KH, D, _ = case
+    rng = np.random.default_rng(10)
+    q = _on(cuda, rng, B, H, D, dtype=dtype)
+    k, v = (_on(cuda, rng, B, S, KH, D, dtype=dtype) for _ in range(2))
+    valid = torch.from_numpy(rng.random((B, S)) > 0.3).to(cuda, torch.int32)
+    rows = slice(1, None) if B > 1 else slice(None)
+    if B > 1:
+        valid[0] = 0  # all-invalid row
+    got = decode_attention_cuda(q, k, v, valid, scale=D**-0.5, normalize=normalize)
+    exp = decode_attention_plain(q, k, v, valid, scale=D**-0.5, normalize=normalize)
+    torch.cuda.synchronize()
+    if B > 1:
+        assert float(got[0][0].abs().max()) == 0.0 and float(got[2][0].max()) == 0.0
+    # fp32 sums in another order over S: 1e-4, relative to l's scale
+    for a, b in zip(got, exp):
+        assert float((a[rows] - b[rows]).abs().max()) < 1e-4 * max(1.0, float(b[rows].abs().max()))
