@@ -13,14 +13,27 @@ toolkit: ``python3 chip_smoke.py``. It
 4. holds K2 (flash-attention forward) against its plain version: causal
    prefill, and a window with a query offset where a row's first visited
    kv tile is fully masked;
-5. serves 16 requests on qwen3-1.7b at full width (random weights from a
+5. holds K3 (the chunked SSD scan) against its plain version, bf16 and
+   fp32, each element against its own scale: the mLSTM prefill shapes
+   (input gates as the model draws them, and up to e^10), a sequence that
+   pads, one below a chunk, P = N = 64, loga = 0, loga ~ -5, and chunk 64
+   vs 256;
+6. serves 16 requests on qwen3-1.7b at full width (random weights from a
    seeded generator) through ``ServeLoop`` in arena mode and checks that
    every prefill went through K2 and every decode step through K1;
-6. compares the logits of the kernel path with the plain path;
-7. times each kernel, its plain version and the PyTorch library call for
-   the same function at the main path's shapes, and times a decode step
-   and a prefill to show each kernel's share;
-8. prints one ``{"kernels": [...]}`` line with times and bounds, the card
+7. compares the logits of the kernel path with the plain path;
+8. serves 12 requests on xlstm-1.3b at full width the same way and checks
+   that every mLSTM prefill went through K3; holds the first mLSTM block
+   (K3 on its scan inputs, its output, its prefill state) in bf16 on real
+   activations, and the logits of the first 8 layers in fp32, on the
+   kernel path against the plain path; checks that the full stack's
+   logits are finite, and that a parked row's recurrent state is left bit
+   for bit;
+9. times each kernel, its plain version and the PyTorch library call for
+   the same function (where one exists) at the main path's shapes, times
+   decode steps and prefills to show each kernel's share, and splits an
+   xlstm prefill with CUDA events inside the call;
+10. prints one ``{"kernels": [...]}`` line with times and bounds, the card
    line, and last ``{"ok": true, "device": {...}}``. ``--out FILE`` also
    writes every measurement to FILE as JSON.
 
@@ -31,11 +44,14 @@ Without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -45,12 +61,30 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense tensor-core bf16
+FP32_FLOPS = 67e12  # fp32 on the CUDA cores
 BF16_TOL, FP32_TOL = 3e-2, 1e-4  # kernel vs plain: bf16 as tests/test_kernels.py; fp32 sums in another order
+# K3 and the mLSTM block vs plain, each element against its own scale (see
+# scaled_err in main: the mLSTM input gate reaches e^10, so one global scale
+# would hide the error of every element near the few large ones). bf16: the
+# output is rounded to bf16 and two fp32 sums in another order may round to
+# neighbouring values; one ulp is at most 2^-7 of an element, so at most
+# 2^-8 (3.9e-3) of its scale, and 1e-2 admits two. fp32: sums over ~800
+# terms in another order, a few fp32 ulps (6e-8) each. To both, k3_tol in
+# main adds the error of the decay factors, which grows with the data's
+# cumulative log-decay.
+K3_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # of the largest |logit|. The two paths round attention outputs to bf16 after
 # summing in another order, and 28 bf16 layers carry that forward: a bf16
 # ulp at |logit| ~ 4 is 1/32. A wrong mask or head mapping moves logits by
 # O(|logit|).
 LOGIT_TOL = 5e-2
+# xlstm logits, kernel vs plain path, of the largest |logit|, in fp32 on the
+# first 8 layers (7 mLSTM, 1 sLSTM) at full width. The random-weight stack
+# grows a difference layer by layer (after all 48 the two paths end a few %
+# of the largest logit apart in fp32, O(|logit|) in bf16), so the check is
+# made where a correct kernel sits far below it and a wrong one, which moves
+# logits by O(|logit|), far above.
+XLOGIT_TOL, XLOGIT_LAYERS = 1e-3, 8
 
 
 def check(ok: bool, what: str) -> None:
@@ -87,8 +121,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain, unfold
     from repro_torch.launch.serve import Request, ServeLoop
     from repro_torch.models import model as M
+    from repro_torch.models import ssm
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -173,7 +209,85 @@ def main(argv=None) -> int:
         k2_err[str(dtype)] = worst
         print(f"K2 vs plain {dtype}: max abs err {worst:.3e} (tol {tol})")
 
-    # -- 5. serve qwen3-1.7b at full width ---------------------------------
+    # -- 5. K3 vs plain ---------------------------------------------------
+    def k3_inputs(B, S, H, P, N, dtype, loga="gate", b_dtype=torch.float32, gate_sd=1.0):
+        """mLSTM-like data: x with a ones column last (the normaliser), b =
+        k * exp(input gate), the gate's log ~ N(0, gate_sd^2) clamped at
+        +-10 as the model clamps it (1 is what the model's random weights
+        give; 3 reaches e^10), loga = log sigmoid of an open forget gate
+        (or 0, or ~ -5)."""
+        x = rnd(B, S, H, P, dtype=dtype)
+        x[..., -1] = 1
+        c = rnd(B, S, H, N, dtype=dtype)
+        gate = torch.exp((gate_sd * torch.randn(B, S, H, 1, generator=gen, device=dev)).clamp(-10, 10))
+        b = (torch.randn(B, S, H, N, generator=gen, device=dev) / N**0.5 * gate).to(b_dtype)
+        noise = torch.randn(B, S, H, generator=gen, device=dev)
+        la = {"gate": F.logsigmoid(3 + noise), "zero": torch.zeros_like(noise), "neg5": -5 + 0.1 * noise}[loga]
+        return x, la, b, c
+
+    def scaled_err(a, b):
+        """Largest |a - b| / (|b| + the largest |b| of its row), a row being
+        the last axis: one time step's P values of y, one state row of h,
+        one token's features. Each element is held to its own scale, so a
+        few huge gates cannot hide the error of the elements around them;
+        where the scale is 0 the two must be equal."""
+        a, b = a.float(), b.float()
+        scale = b.abs() + b.abs().amax(dim=-1, keepdim=True)
+        return float(((a - b).abs() / scale.clamp_min(1e-30)).max())
+
+    def k3_tol(dtype, loga, chunk):
+        """K3's limit on this data: K3_TOL[dtype] plus the error of the decay
+        factors exp(cum_t - cum_s). Both versions take each from two
+        cumulative sums of the chunk's log-decay, which reach |cum| (1280
+        at loga ~ -5 over 256 steps), so each factor carries a relative
+        error of order |cum| * 2^-24 in either; where a row's own term is
+        small, the decayed terms make its value and bring that error with
+        them. Allow 4 such."""
+        bh, s = loga.shape
+        L = min(chunk, s)
+        cum = float(loga.reshape(bh, s // L, L).cumsum(-1).abs().max())
+        return K3_TOL[dtype] + 4 * 2**-24 * cum
+
+    K3_PATH = (1, 1024, 4, 513, 512)  # one 1024-token prompt: B, S, H, P = head_dim + 1, N = head_dim
+    k3_cases = [  # (name, (B, S, H, P, N), loga, b dtype or None for fp32, sd of the log input gate)
+        ("path", K3_PATH, "gate", None, 1.0),
+        ("path, input gates up to e^10", K3_PATH, "gate", None, 3.0),
+        ("pads: S = 384", (1, 384, 4, 513, 512), "gate", None, 1.0),
+        ("below one chunk: S = 100", (2, 100, 3, 17, 40), "gate", None, 1.0),
+        ("below one chunk, b in bf16", (2, 100, 3, 17, 40), "gate", torch.bfloat16, 1.0),
+        ("P = N = 64", (2, 512, 4, 64, 64), "gate", None, 1.0),
+        ("loga = 0", (1, 512, 4, 65, 64), "zero", None, 1.0),
+        ("loga ~ -5", (1, 512, 4, 65, 64), "neg5", None, 1.0),
+    ]
+    k3_err, k3_scaled, k3_fail = {}, {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        worst_abs = worst_scaled = 0.0
+        for name, shape, loga, b_dtype, gate_sd in k3_cases:
+            inputs = k3_inputs(*shape, dtype=dtype, loga=loga, b_dtype=b_dtype or torch.float32, gate_sd=gate_sd)
+            f = fold(*inputs, 256)
+            y, h = ssm_scan_cuda(*f, 256)
+            ye, he = ssm_scan_plain(*f, 256)
+            torch.cuda.synchronize()
+            sy, sh = scaled_err(y, ye), scaled_err(h, he)
+            ty, th = k3_tol(dtype, f[1], 256), k3_tol(torch.float32, f[1], 256)
+            print(f"K3 vs plain {dtype}, {name}: scaled err y {sy:.3e} (tol {ty:.3e}), "
+                  f"h {sh:.3e} (tol {th:.3e}); max abs err y {err(y, ye):.3e}, h {err(h, he):.3e}")
+            if not (sy <= ty and sh <= th):
+                k3_fail.append(f"{dtype}, {name}")
+            worst_abs, worst_scaled = max(worst_abs, err(y, ye), err(h, he)), max(worst_scaled, sy, sh)
+        # the chunk length does not change the final state
+        f = fold(*k3_inputs(1, 512, 4, 513, 512, dtype=dtype), 256)
+        _, h64 = ssm_scan_cuda(*f, 64)
+        _, h256 = ssm_scan_cuda(*f, 256)
+        torch.cuda.synchronize()
+        sc, tc = scaled_err(h64, h256), k3_tol(torch.float32, f[1], 256)
+        print(f"K3 final state, chunk 64 vs 256 ({dtype}): scaled err {sc:.3e} (tol {tc:.3e})")
+        if not sc <= tc:
+            k3_fail.append(f"{dtype}, chunk 64 vs 256")
+        k3_err[str(dtype)], k3_scaled[str(dtype)] = worst_abs, max(worst_scaled, sc)
+    check(not k3_fail, f"K3 vs plain: {k3_fail}")
+
+    # -- 6. serve qwen3-1.7b at full width ---------------------------------
     cfg = get_config("qwen3-1.7b")
     t0 = time.perf_counter()
     params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
@@ -209,7 +323,7 @@ def main(argv=None) -> int:
           f"{stats['decode_calls']} decode calls, occupancy {stats['slot_occupancy']:.3f}, "
           f"wall {stats['wall_s']:.2f} s, peak memory {peak / 2**30:.2f} GiB; launches {launches}")
 
-    # -- 6. logits: kernel path vs plain path -------------------------------
+    # -- 7. logits: kernel path vs plain path -------------------------------
     plain_run = RunConfig(remat="none", attention_impl="chunked", decode_attention_impl="einsum")
     prompt = torch.as_tensor(np.stack([corpus.grain_tokens(100 + i, 1)[0][:300] for i in range(2)]),
                              dtype=torch.long, device=dev)
@@ -235,7 +349,140 @@ def main(argv=None) -> int:
     print(f"logits kernel vs plain (prefill 2x300 + 4 decode steps): max abs diff {worst:.4f}, "
           f"largest |logit| {top:.3f}, tol {LOGIT_TOL * max(1.0, top):.4f}")
 
-    # -- 7. times and bounds at the main path's shapes (bf16) ---------------
+    # -- 8. serve xlstm-1.3b at full width ---------------------------------
+    xcfg = get_config("xlstm-1.3b")
+    t0 = time.perf_counter()
+    xparams = M.init_model(xcfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"init xlstm-1.3b ({M.count_params_exact(xcfg)} params, bf16): {time.perf_counter() - t0:.1f} s")
+    XL = sum(xcfg.layer_kind(i) == "mlstm" for i in range(xcfg.num_layers))  # 42 mLSTM layers
+    XS = xcfg.num_layers - XL  # 6 sLSTM layers
+    xlens = [256, 384, 512, 640, 768, 1024] * 2
+    xcorpus = SyntheticCorpus(xcfg.vocab_size, max(xlens), seed=0)
+    xreqs = [Request(i, xcorpus.grain_tokens(i, 1)[0][:n], 32) for i, n in enumerate(xlens)]
+    xloop = ServeLoop(xcfg, kernel_run, xparams, batch=8, max_len=2048, mode="arena", device="cuda")
+    xloop.warm(256)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    xloop.start(xreqs, t0=time.perf_counter())
+    while xloop.tick() != "done":
+        pass
+    torch.cuda.synchronize()
+    xlaunches = dict(ops.LAUNCHES)
+    xstats = xloop.stats()
+    xpeak = torch.cuda.max_memory_allocated()
+    check(xstats["completed"] == len(xlens), f"served {xstats['completed']}/{len(xlens)}")
+    check(xstats["decode_calls"] < xstats["decode_steps"], "arena batches decode steps")
+    check(xstats["prefill_calls"] == len(xlens) and xlaunches["ssm_scan"] == XL * xstats["prefill_calls"],
+          f"K3 launches {xlaunches['ssm_scan']} != {XL} x {xstats['prefill_calls']} prefills")
+    check(xlaunches["flash_attention"] == xlaunches["decode_attention"] == 0, "xlstm has no attention")
+    check(all(len(r.tokens) == 32 for r in xreqs), "every request got 32 tokens")
+    record["serve_xlstm"] = {**xstats, "launches": xlaunches, "peak_bytes": xpeak}
+    print(f"serve xlstm-1.3b arena batch=8, {len(xlens)} requests (prompts 256-1024, gen 32) on {card}: "
+          f"{xstats['tokens_per_s']:.1f} tok/s, mean TTFT {xstats['mean_ttft_s'] * 1e3:.1f} ms, "
+          f"{xstats['decode_calls']} decode calls, occupancy {xstats['slot_occupancy']:.3f}, "
+          f"wall {xstats['wall_s']:.2f} s, peak memory {xpeak / 2**30:.2f} GiB; launches {xlaunches}")
+
+    # -- 9. xlstm: the first mLSTM block; logits; a parked row -------------
+    def plain_scan(x, loga, b, c, chunk=256):
+        y, h = ssm_scan_plain(*fold(x, loga, b, c, chunk), chunk)
+        return unfold(y, h, x.shape[0], x.shape[1])
+
+    xprompt = torch.as_tensor(np.stack([xcorpus.grain_tokens(100 + i, 1)[0][:300] for i in range(2)]),
+                              dtype=torch.long, device=dev)
+    # The first mLSTM block of the bf16 serve model on the embeddings of two
+    # 300-token prompts (the scan pads them to 512): K3 on the scan inputs
+    # the block builds, then the block's output and prefill state, kernel
+    # path vs plain path. Both paths see the same inputs, so K3's limits hold.
+    scan_args = []
+    kernel_scan = ops.ssm_scan
+
+    def capture(*args):
+        scan_args.append(args)
+        return kernel_scan(*args)
+
+    h0 = F.embedding(xprompt, xparams["embed"])
+    first = {}
+    for name, scan in (("kernel", capture), ("plain", plain_scan)):
+        with mock.patch.object(ops, "ssm_scan", scan):
+            first[name] = ssm.mlstm_apply_full(xcfg, xparams["layers"][0]["mlstm"], h0, chunk=256,
+                                               return_state=True)
+    f0 = fold(*scan_args[0])
+    y0, s0 = ssm_scan_cuda(*f0, scan_args[0][4])
+    ye0, se0 = ssm_scan_plain(*f0, scan_args[0][4])
+    torch.cuda.synchronize()
+    block0 = {"scan_y": scaled_err(y0, ye0), "scan_h": scaled_err(s0, se0),
+              "block_out": scaled_err(first["kernel"][0], first["plain"][0]),
+              "block_state": scaled_err(first["kernel"][1], first["plain"][1]),
+              "tol_bf16": k3_tol(torch.bfloat16, f0[1], scan_args[0][4]),
+              "tol_fp32": k3_tol(torch.float32, f0[1], scan_args[0][4])}
+    print(f"xlstm first mLSTM block, bf16, kernel vs plain: scan inputs x {tuple(f0[0].shape)} {f0[0].dtype}, "
+          f"b {f0[2].dtype}, c {f0[3].dtype}; scaled err scan y {block0['scan_y']:.3e}, block output "
+          f"{block0['block_out']:.3e} (tol {block0['tol_bf16']:.3e}); scan state {block0['scan_h']:.3e}, "
+          f"block state {block0['block_state']:.3e} (tol {block0['tol_fp32']:.3e})")
+    check(max(block0["scan_y"], block0["block_out"]) <= block0["tol_bf16"]
+          and max(block0["scan_h"], block0["block_state"]) <= block0["tol_fp32"],
+          f"xlstm first mLSTM block, kernel vs plain: {block0}")
+
+    def logits_run(mcfg, mparams):
+        """Prefill the two prompts, then 4 decode steps feeding both paths
+        the kernel path's greedy tokens. Returns the largest |kernel -
+        plain| logit, the largest |plain| logit, whether all are finite and
+        of shape (2, 1, vocab), the caches and the last tokens."""
+        logits, caches = {}, {}
+        for name in ("kernel", "plain"):
+            with mock.patch.object(ops, "ssm_scan", plain_scan) if name == "plain" else contextlib.nullcontext():
+                logits[name], caches[name] = M.prefill(mcfg, kernel_run, mparams, xprompt, 512)
+        worst, top, sound = 0.0, 0.0, True
+        for step in range(5):
+            a, b = logits["kernel"].float(), logits["plain"].float()
+            worst, top = max(worst, float((a - b).abs().max())), max(top, float(b.abs().max()))
+            sound &= all(t.shape == (2, 1, mcfg.vocab_size) and bool(torch.isfinite(t).all()) for t in (a, b))
+            if step == 4:
+                break
+            tok = torch.argmax(a[:, -1], dim=-1, keepdim=True)
+            for name in ("kernel", "plain"):
+                logits[name], _ = M.decode_step(mcfg, kernel_run, mparams, caches[name], tok)
+        torch.cuda.synchronize()
+        return worst, top, sound, caches, tok
+
+    # logits, checked in fp32 on the first XLOGIT_LAYERS layers; over all 48
+    # layers, in fp32 and in bf16, only finite and of the right shape (the
+    # differences are reported)
+    x32 = dataclasses.replace(xcfg, compute_dtype="float32")
+    x32params = M.init_model(x32, torch.Generator(device=dev).manual_seed(0), dtype=torch.float32)
+    xcut = dataclasses.replace(x32, num_layers=XLOGIT_LAYERS)
+    worst, top, sound, _, _ = logits_run(xcut, {**x32params, "layers": x32params["layers"][:XLOGIT_LAYERS]})
+    full32 = logits_run(x32, x32params)
+    full16 = logits_run(xcfg, xparams)
+    print(f"xlstm logits kernel vs plain (prefill 2x300 + 4 decode steps): fp32, first {XLOGIT_LAYERS} layers: "
+          f"max abs diff {worst:.4e}, largest |logit| {top:.3f}, tol {XLOGIT_TOL * max(1.0, top):.4e}; "
+          f"all 48 layers (not checked): fp32 {full32[0]:.4f} at {full32[1]:.3f}, "
+          f"bf16 {full16[0]:.4f} at {full16[1]:.3f}")
+    check(sound and full32[2] and full16[2], "xlstm logits finite and of shape (2, 1, vocab)")
+    check(worst <= XLOGIT_TOL * max(1.0, top),
+          f"xlstm logits kernel vs plain (fp32, {XLOGIT_LAYERS} layers): {worst} > {XLOGIT_TOL} x {top}")
+    cache, tok = full32[3]["kernel"], full32[4]
+    before = [cache["pos"][1].clone(), cache["mlstm"][:, 1].clone()] + [t[:, 1].clone() for t in cache["slstm"].values()]
+    row0 = cache["mlstm"][:, 0].clone()
+    M.decode_step(x32, kernel_run, x32params, cache, tok, active=torch.tensor([True, False], device=dev))
+    after = [cache["pos"][1], cache["mlstm"][:, 1]] + [t[:, 1] for t in cache["slstm"].values()]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(after, before)), "a parked row's xlstm state is untouched")
+    check(not torch.equal(cache["mlstm"][:, 0], row0), "the active row advanced")
+    record["first_mlstm_block"] = block0
+    record["logits_xlstm"] = {
+        f"fp32_{XLOGIT_LAYERS}_layers": {"max_abs_diff": worst, "max_abs_logit": top,
+                                         "tol": XLOGIT_TOL * max(1.0, top)},
+        "fp32_48_layers": {"max_abs_diff": full32[0], "max_abs_logit": full32[1]},
+        "bf16_48_layers": {"max_abs_diff": full16[0], "max_abs_logit": full16[1]},
+        "parked_row_bit_identical": True,
+    }
+    print("xlstm parked row: mLSTM and sLSTM state and position bit-identical")
+    del x32params, full32, cache
+
+    # -- 10. times and bounds at the main path's shapes (bf16) --------------
     S = 2048
     q1, k1, v1 = rnd(B, H, D, dtype=torch.bfloat16), rnd(B, S, KH, D, dtype=torch.bfloat16), rnd(B, S, KH, D, dtype=torch.bfloat16)
     valid1 = (torch.rand(B, S, generator=gen, device=dev) > 0.3).to(torch.int32)
@@ -248,6 +495,16 @@ def main(argv=None) -> int:
     q2s, k2s, v2s = q2.transpose(1, 2), k2.transpose(1, 2), v2.transpose(1, 2)
     k2_bytes = (q2.numel() * 2 + k2.numel() + v2.numel()) * 2
     k2_flops = 4 * H * D * Sq * (Sq + 1) // 2
+    # K3 at one 1024-token mLSTM prefill: x = v with the ones column (bf16),
+    # loga fp32, b = k * igate (fp32), c = q (bf16); chunk 256
+    f3 = fold(*k3_inputs(*K3_PATH, dtype=torch.bfloat16), 256)
+    BH, S3, P3 = f3[0].shape
+    N3, L3 = f3[2].shape[-1], 256
+    k3_bytes = sum(t.numel() * t.element_size() for t in f3) + f3[0].numel() * 2 + BH * N3 * P3 * 4
+    # what the data needs per row and chunk: C B^T and W X on the causal
+    # half, C h and the state update in full
+    tri = L3 * (L3 + 1) // 2
+    k3_flops = BH * (S3 // L3) * (2 * tri * N3 + 2 * tri * P3 + 4 * L3 * N3 * P3)
     kernels = []
     for name, fn, plain, lib, nbytes, flops, src, tpu, launches_n, per_step, errs in (
         ("flash_decode", lambda: decode_attention_cuda(q1, k1, v1, valid1, scale=D**-0.5),
@@ -255,26 +512,40 @@ def main(argv=None) -> int:
          lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask1, enable_gqa=True),
          k1_bytes, k1_flops, "src/repro_torch/csrc/decode_attention.cu",
          ("src/repro/kernels/decode_attention.py:31", "src/repro/kernels/decode_attention.py:_decode_kernel"),
-         launches["decode_attention"], f"{L} per decode step", k1_err),
+         launches["decode_attention"], f"{L} per decode step (qwen3-1.7b serve)", k1_err),
         ("flash_attention_fwd", lambda: flash_attention_cuda(q2, k2, v2, scale=D**-0.5),
          lambda: flash_attention_plain(q2, k2, v2, scale=D**-0.5),
          lambda: F.scaled_dot_product_attention(q2s, k2s, v2s, is_causal=True, enable_gqa=True),
          k2_bytes, k2_flops, "src/repro_torch/csrc/flash_attention.cu",
          ("src/repro/kernels/flash_attention.py:28", "src/repro/kernels/flash_attention.py:_flash_kernel"),
-         launches["flash_attention"], f"{L} per prefill", k2_err),
+         launches["flash_attention"], f"{L} per prefill (qwen3-1.7b serve)", k2_err),
+        # no single PyTorch call computes a chunked scan with its final state
+        ("ssd_scan", lambda: ssm_scan_cuda(*f3, 256), lambda: ssm_scan_plain(*f3, 256), None,
+         k3_bytes, k3_flops, "src/repro_torch/csrc/ssm_scan.cu",
+         ("src/repro/kernels/ssm_scan.py:30", "src/repro/kernels/ssm_scan.py:_ssd_kernel"),
+         xlaunches["ssm_scan"], f"{XL} per prefill (xlstm-1.3b serve)", k3_err),
     ):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu[0], "tpu_kernel": tpu[1],
             "launches": launches_n, "launches_per_step": per_step,
             "max_abs_err": max(errs.values()), "tol": {"bf16": BF16_TOL, "fp32": FP32_TOL},
-            "ms": timed_ms(fn), "plain_ms": timed_ms(plain), "library_ms": timed_ms(lib),
+            "ms": timed_ms(fn), "plain_ms": timed_ms(plain), "library_ms": timed_ms(lib) if lib else None,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops,
         })
         kernels[-1]["kernel_ms"] = kernels[-1]["ms"]
         check(launches_n > 0, f"{name} was not launched on the main path")
+    kernels[2].update(tol={"bf16": K3_TOL[torch.bfloat16], "fp32": K3_TOL[torch.float32],
+                           "scaled": True, "plus": "4 * 2^-24 * max |cum| of the case"},
+                      max_scaled_err=max(k3_scaled.values()),
+                      library_note="no single PyTorch call computes a chunked scan")
     record["kernels"] = kernels
+    # K3 computes in fp32 on the CUDA cores: its operations at their peak
+    # (a bound, not a time)
+    record["k3_fp32_core_bound_ms"] = k3_flops / FP32_FLOPS * 1e3
+    print(f"K3: {k3_flops / 1e9:.3f} GFLOP at the fp32 CUDA-core peak (67 TFLOP/s) is a bound of "
+          f"{record['k3_fp32_core_bound_ms']:.5f} ms; kernel {kernels[2]['ms']:.4f} ms")
 
     # where a decode step and a prefill spend their time (host clock around
     # synchronised calls at the serve's shapes: 8 slots at position ~1024,
@@ -297,10 +568,56 @@ def main(argv=None) -> int:
     step_ms = host_ms(lambda: M.decode_step(cfg, kernel_run, params, arena, toks, active=act))
     prefill_ms = host_ms(lambda: M.prefill(cfg, kernel_run, params, prompt, 2048))
     k1_share, k2_share = L * kernels[0]["ms"] / step_ms, L * kernels[1]["ms"] / prefill_ms
+    # xlstm: a decode step with 8 slots; a 1024-token prefill split inside
+    # itself: CUDA events around the whole prefill, around each K3 call (its
+    # wrapper: padding, fold, kernel, unfold) and around each sLSTM block
+    # (its time loop), all in the same call, so the parts sum to at most the
+    # whole. On a host-bound stretch an event pair spans the device's wait
+    # for the host too, which is the time the prefill spends there.
+    xarena = M.init_cache(xcfg, 8, 2048, dev)
+    xprompt = torch.as_tensor(xcorpus.grain_tokens(200, 1)[:, :1024], dtype=torch.long, device=dev)
+    x_step_ms = host_ms(lambda: M.decode_step(xcfg, kernel_run, xparams, xarena, toks, active=act))
+
+    def split_prefill():
+        spans = {"ssm_scan": [], "slstm": []}
+
+        def spanned(key, fn):
+            def call(*args, **kwargs):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(*args, **kwargs)
+                b.record()
+                spans[key].append((a, b))
+                return out
+            return call
+
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with mock.patch.object(ops, "ssm_scan", spanned("ssm_scan", ops.ssm_scan)), \
+                mock.patch.object(ssm, "slstm_apply_full", spanned("slstm", ssm.slstm_apply_full)):
+            a.record()
+            M.prefill(xcfg, kernel_run, xparams, xprompt, 2048)
+            b.record()
+        torch.cuda.synchronize()
+        check(len(spans["ssm_scan"]) == XL and len(spans["slstm"]) == XS, "every block of the prefill was timed")
+        return a.elapsed_time(b), {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
+
+    split_prefill()  # warm-up
+    splits = [split_prefill() for _ in range(2)]
+    for total, part in splits:
+        check(part["ssm_scan"] + part["slstm"] <= total, f"prefill parts {part} within the whole {total}")
     record["breakdown"] = {"decode_step_ms": step_ms, "k1_share": k1_share,
-                           "prefill_1024_ms": prefill_ms, "k2_share": k2_share}
+                           "prefill_1024_ms": prefill_ms, "k2_share": k2_share,
+                           "xlstm_decode_step_ms": x_step_ms,
+                           "xlstm_prefill_1024": [{"ms": total, "k3_calls_ms": part["ssm_scan"],
+                                                   "slstm_blocks_ms": part["slstm"]} for total, part in splits]}
     print(f"decode step (8 slots at ~1024) {step_ms:.2f} ms, {L} x K1 = {k1_share:.1%} of it; "
           f"prefill of 1024 tokens {prefill_ms:.2f} ms, {L} x K2 = {k2_share:.1%} of it ({card})")
+    print(f"xlstm-1.3b: decode step (8 slots) {x_step_ms:.2f} ms ({card})")
+    for total, part in splits:
+        print(f"xlstm-1.3b prefill of 1024 tokens (CUDA events inside one call): {total:.2f} ms; {XL} K3 calls "
+              f"{part['ssm_scan']:.2f} ms = {part['ssm_scan'] / total:.1%} ({XL} x kernel alone = "
+              f"{XL * kernels[2]['ms'] / total:.1%}); {XS} sLSTM blocks {part['slstm']:.2f} ms = "
+              f"{part['slstm'] / total:.1%} ({card})")
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(record, indent=1, default=str))

@@ -6,7 +6,8 @@ are kept as they are (``wq (D, H, hd)``, ``wk``/``wv (D, KH, hd)``,
 ``wo (H, hd, D)``, MLP ``gate``/``up (D, F)``, ``down (F, D)``); the only
 change is that the JAX package stacks every layer parameter under a
 leading ``num_periods`` axis per period slot ``b{j}``, and the port keeps
-one dict per layer, layer ``i = n * period + j``.
+one dict per layer, layer ``i = n * period + j``. Caches go the other
+way: the port stacks each kind of state over the layers of that kind.
 """
 
 from __future__ import annotations
@@ -43,16 +44,35 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu", dtype=None) -> d
     return out
 
 
+def _stack(trees: list):
+    """Stack a list of same-shaped dict trees of tensors leaf by leaf."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 def cache_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
-    """A JAX decode cache ``{"pos", "layers": {"b{j}": {"attn": {"k", "v"}}}}``
-    (numpy leaves) as the port's ``{"pos", "k", "v"}`` with layers stacked."""
+    """A JAX decode cache ``{"pos", "layers": {"b{j}": {kind: ...}}}``
+    (numpy leaves) as the port's cache (``models/model.py::init_cache``):
+    ``{"pos", "k", "v"}`` for attention, ``{"pos", "mlstm", "slstm": {"h",
+    "c", "n", "m"}}`` for xLSTM, each kind stacked over its layers. The JAX
+    sLSTM state is the tuple ``(h, c, n, m)``."""
     p = cfg.period
-    sides = {}
-    for side in ("k", "v"):
-        per_layer = []
-        for i in range(cfg.num_layers):
-            n, j = divmod(i, p)
-            per_layer.append(_tensor(np.asarray(tree["layers"][f"b{j}"]["attn"][side])[n], device, None))
-        sides[side] = torch.stack(per_layer)
-    pos = torch.from_numpy(np.asarray(tree["pos"]).astype(np.int64)).to(device)
-    return {"pos": pos, **sides}
+    per_kind: dict[str, list] = {}
+    for i in range(cfg.num_layers):
+        n, j = divmod(i, p)
+        kind = cfg.layer_kind(i)
+        blk = tree["layers"][f"b{j}"][kind]
+        if kind == "attn":
+            leaf = {"k": blk["k"], "v": blk["v"]}
+        elif kind == "mlstm":
+            leaf = {"mlstm": blk["state"]}
+        elif kind == "slstm":
+            leaf = {"slstm": dict(zip(("h", "c", "n", "m"), blk["state"]))}
+        else:
+            raise NotImplementedError(f"{kind} caches are not ported to repro_torch yet")
+        per_kind.setdefault(kind, []).append(_map(leaf, lambda a, n=n: _tensor(np.asarray(a)[n], device, None)))
+    out = {"pos": torch.from_numpy(np.asarray(tree["pos"]).astype(np.int64)).to(device)}
+    for layers in per_kind.values():
+        out.update(_stack(layers))
+    return out

@@ -1,7 +1,8 @@
 """Architecture registry of the port.
 
 The JAX package knows ten architectures; the port runs the dense attention
-stack so far, so only those are registered here. The others raise a
+stack and the xLSTM stack (mLSTM + sLSTM) so far, so only those are
+registered here. The others raise a
 "not ported" error naming the arch. The workload input specs of the JAX
 registry are built from ``jax.ShapeDtypeStruct`` and are left out.
 """
@@ -20,6 +21,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 # known to the JAX package, not yet to the port
@@ -32,7 +34,6 @@ _NOT_PORTED = (
     "llava-next-34b",
     "moonshot-v1-16b-a3b",
     "mixtral-8x22b",
-    "xlstm-1.3b",
 )
 
 ARCH_IDS = tuple(_ARCH_MODULES)

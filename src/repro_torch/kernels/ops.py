@@ -3,13 +3,15 @@
   flash_attention(q, k, v, ...)     — (B, Sq, H, D) × (B, Sk, KH, D) → (B, Sq, H, D)   (K2)
   decode_attention(q, k, v, valid)  — (B, H, D) one token vs the (B, S, KH, D) cache  (K1)
   combine_decode_partials(...)      — logsumexp combine of K1 partials from shards
+  ssm_scan(x, loga, b, c, chunk)    — chunked SSD scan, (B, S, H, P) → y, final h (K3)
 
 A wrapper runs its kernel's plain PyTorch version for tensors on the CPU
 (the tests) and launches the CUDA kernel for tensors on the card, raising
 if the kernel does not take them; there is no fallback from one to the
 other. ``LAUNCHES`` counts kernel launches per wrapper, so a run can show
-that its main path went through the kernels. Both kernels read the
-tensors in the model's layout through strides: no wrapper transposes.
+that its main path went through the kernels. K1 and K2 read the tensors
+in the model's layout through strides; ``ssm_scan`` folds batch and heads
+into the kernel's row axis (a copy), as the JAX package's wrapper does.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import torch
 
 from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain, unfold
 
-LAUNCHES = {"decode_attention": 0, "flash_attention": 0}
+LAUNCHES = {"decode_attention": 0, "flash_attention": 0, "ssm_scan": 0}
 
 
 def reset_launches() -> None:
@@ -86,3 +89,24 @@ def combine_decode_partials(outs, ms, ls):
         num = num + o * w[..., None]
         den = den + l * w
     return num / den.clamp_min(1e-30)[..., None]
+
+
+def ssm_scan(x, loga, b, c, chunk: int = 256):
+    """Chunked SSD scan from a zero state; x (B, S, H, P), loga (B, S, H)
+    fp32, b/c (B, S, H, N). Any S: it is padded to a multiple of
+    ``min(chunk, S)`` with identity steps. Returns ``(y (B, S, H, P) in
+    x's dtype, h (B, H, N, P) fp32)``.
+
+    The CUDA kernel has no backward: on the card this raises for inputs
+    that require a gradient rather than detach them silently.
+    """
+    batch, seq = x.shape[:2]
+    if x.device.type == "cpu":
+        y, h = ssm_scan_plain(*fold(x, loga, b, c, chunk), chunk)
+    else:
+        if any(t.requires_grad for t in (x, loga, b, c)):
+            raise RuntimeError("ssm_scan: the CUDA kernel has no backward; call it on tensors "
+                               "that do not require grad (torch.no_grad())")
+        y, h = ssm_scan_cuda(*fold(x, loga, b, c, chunk), chunk)
+        LAUNCHES["ssm_scan"] += 1
+    return unfold(y, h, batch, seq)

@@ -26,13 +26,15 @@ and claim 14 make.
 
 On the card the kernel path is the default (``main()`` selects
 ``attention_impl="pallas"``, K2, for prefill and
-``decode_attention_impl="kernel"``, K1, for decode); the plain versions run
-only for tensors on the CPU. ``ServeLoop(..., device="cuda")`` raises when
+``decode_attention_impl="kernel"``, K1, for decode; the xLSTM stack's
+mLSTM prefill always runs K3); the plain versions run only for tensors on
+the CPU. ``ServeLoop(..., device="cuda")`` raises when
 no card is present: it never carries on on the CPU.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b-smoke \
       --requests 16 --batch 4 --prompt-len 32 --gen 16 --mode arena
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b-smoke --device cpu
 """
 
 from __future__ import annotations
@@ -107,7 +109,7 @@ class Request:
 
 class _Group:
     """Cohort-mode slots whose caches share a position, stacked along the
-    batch axis (dim 1 of the cache's k/v, dim 0 of ``pos``)."""
+    batch axis (dim 1 of every per-layer cache tensor, dim 0 of ``pos``)."""
 
     __slots__ = ("pos", "rids", "cache", "last")
 
@@ -115,30 +117,34 @@ class _Group:
         self.pos, self.rids, self.cache, self.last = pos, rids, cache, last
 
 
+def _map_cache(fn, *caches):
+    """Apply ``fn(*tensors, dim)`` to every tensor of the caches, which
+    share a structure (``models/model.py::init_cache``): ``dim`` is the
+    batch axis, 0 for ``pos`` and 1 for every per-layer stack."""
+
+    def walk(nodes, dim):
+        if isinstance(nodes[0], dict):
+            return {k: walk([n[k] for n in nodes], 0 if k == "pos" and dim is None else 1)
+                    for k in nodes[0]}
+        return fn(*nodes, dim)
+
+    return walk(list(caches), None)
+
+
 def _cat(a, b):
-    return {
-        "pos": torch.cat([a["pos"], b["pos"]]),
-        "k": torch.cat([a["k"], b["k"]], dim=1),
-        "v": torch.cat([a["v"], b["v"]], dim=1),
-    }
+    return _map_cache(lambda x, y, dim: torch.cat([x, y], dim=dim), a, b)
 
 
 def _take(cache, idx: list[int]):
     sel = torch.tensor(idx, device=cache["pos"].device)
-    return {
-        "pos": cache["pos"].index_select(0, sel),
-        "k": cache["k"].index_select(1, sel),
-        "v": cache["v"].index_select(1, sel),
-    }
+    return _map_cache(lambda x, dim: x.index_select(dim, sel), cache)
 
 
 def _slot_write(arena, one, slot: int) -> None:
     """Copy a freshly prefilled single-request cache into arena slot
     ``slot``, in place."""
     idx = torch.tensor([slot], device=arena["pos"].device)
-    arena["k"].index_copy_(1, idx, one["k"])
-    arena["v"].index_copy_(1, idx, one["v"])
-    arena["pos"].index_copy_(0, idx, one["pos"])
+    _map_cache(lambda a, o, dim: a.index_copy_(dim, idx, o), arena, one)
 
 
 class ServeLoop:

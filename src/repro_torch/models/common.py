@@ -52,6 +52,24 @@ def zeros_init(gen, shape, device):
     return torch.zeros(tuple(shape), device=device)
 
 
+def ones_init(gen, shape, device):
+    return torch.ones(tuple(shape), device=device)
+
+
+def const_init(value: float) -> InitFn:
+    def init(gen, shape, device):
+        return torch.full(tuple(shape), value, device=device)
+
+    return init
+
+
+def uniform_init(lo: float, hi: float) -> InitFn:
+    def init(gen, shape, device):
+        return torch.rand(tuple(shape), generator=gen, device=device) * (hi - lo) + lo
+
+    return init
+
+
 def is_def(x) -> bool:
     return isinstance(x, ParamDef)
 

@@ -1,24 +1,34 @@
 """Model assembly: embedding → layer loop → LM head.
 
 Port of ``repro/models/model.py`` for stacks of attention blocks with a
-dense SwiGLU FFN (the qwen3 family). The JAX package's ``lax.scan`` over
-block periods becomes a Python loop over layers; parameters are a dict
-with a ``layers`` list, one dict per layer, in the JAX package's weight
-layouts (``wq (D, H, hd)``, ``wo (H, hd, D)``). MoE, Mamba, mLSTM, sLSTM
-blocks and modality frontends raise "not ported".
+dense SwiGLU FFN (the qwen3 family) and for the xLSTM stack (mLSTM and
+sLSTM blocks, no FFN). The JAX package's ``lax.scan`` over block periods
+becomes a Python loop over layers; parameters are a dict with a ``layers``
+list, one dict per layer, in the JAX package's weight layouts (``wq (D, H,
+hd)``, ``wo (H, hd, D)``). MoE, Mamba blocks and modality frontends raise
+"not ported".
 
-The decode cache is ``{"pos": (B,) int64, "k": (L, B, cap, KH, hd),
-"v": ...}``: one tensor per side for all layers, so a serving slot is one
-``index_copy_`` on dim 1. ``decode_step`` updates it in place.
+The decode cache holds what the architecture has, each kind stacked over
+its own layers with batch on dim 1, so a serving slot is one
+``index_copy_`` on dim 1 of every tensor:
+
+* attention: ``{"pos": (B,) int64, "k": (L, B, cap, KH, hd), "v": ...}``;
+* xLSTM: ``{"pos", "mlstm": (L_m, B, H, hd, hd + 1) fp32, "slstm": {"h",
+  "c", "n", "m"}: (L_s, B, d)}`` (``h`` in the compute dtype, the rest
+  fp32, ``m`` starting at -1e30).
+
+``decode_step`` updates the cache in place; an inactive row keeps its
+position, its KV slots and its recurrent state exactly as they were.
 
 Three entry points mirror the workload kinds:
   forward()      — training forward (logits + aux metrics)
-  prefill()      — forward + KV cache construction
+  prefill()      — forward + cache construction
   decode_step()  — one token with cache
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -26,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.common import (
     ParamDef,
     build_params,
@@ -39,15 +50,35 @@ from repro_torch.models.common import (
     trunc_nrm,
 )
 
+PORTED_KINDS = ("attn", "mlstm", "slstm")
+
 
 def _check_ported(cfg: ModelConfig) -> None:
     for i in range(cfg.num_layers):
         kind = cfg.layer_kind(i)
-        if kind != "attn" or cfg.layer_is_moe(i):
+        if kind not in PORTED_KINDS or cfg.layer_is_moe(i):
             what = "moe" if cfg.layer_is_moe(i) else kind
             raise NotImplementedError(f"{cfg.name}: {what} blocks are not ported to repro_torch yet")
     if cfg.frontend:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported to repro_torch yet")
+
+
+@functools.cache
+def _kind_index(cfg: ModelConfig) -> tuple[tuple[str, int], ...]:
+    """(kind, index among the layers of that kind) for every layer: where
+    a layer's state sits in the cache."""
+    seen: dict[str, int] = {}
+    out = []
+    for i in range(cfg.num_layers):
+        kind = cfg.layer_kind(i)
+        out.append((kind, seen.get(kind, 0)))
+        seen[kind] = seen.get(kind, 0) + 1
+    return tuple(out)
+
+
+def _kind_counts(cfg: ModelConfig) -> dict[str, int]:
+    """Number of layers of each kind."""
+    return {kind: j + 1 for kind, j in _kind_index(cfg)}
 
 
 # ---------------------------------------------------------------------------
@@ -55,7 +86,12 @@ def _check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _block_defs(cfg: ModelConfig) -> dict:
+def _block_defs(cfg: ModelConfig, i: int) -> dict:
+    kind = cfg.layer_kind(i)
+    if kind == "mlstm":
+        return {"mlstm": ssm.mlstm_defs(cfg)}
+    if kind == "slstm":
+        return {"slstm": ssm.slstm_defs(cfg)}
     d = {"norm": norm_def(cfg.d_model), "attn": attn.attn_defs(cfg)}
     if cfg.d_ff:
         d["ffn_norm"] = norm_def(cfg.d_model)
@@ -67,7 +103,7 @@ def model_defs(cfg: ModelConfig) -> dict:
     _check_ported(cfg)
     defs = {
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), trunc_nrm(0.02)),
-        "layers": [_block_defs(cfg) for _ in range(cfg.num_layers)],
+        "layers": [_block_defs(cfg, i) for i in range(cfg.num_layers)],
         "final_norm": norm_def(cfg.d_model),
     }
     if not cfg.tie_embeddings:
@@ -118,14 +154,23 @@ def _head(cfg, params, h):
 # ---------------------------------------------------------------------------
 
 
+def _block_full(cfg, run, blk, kind, h, positions):
+    """One block over the whole sequence (no cache)."""
+    if kind == "mlstm":
+        return h + ssm.mlstm_apply_full(cfg, blk["mlstm"], h, chunk=run.ssd_chunk)
+    if kind == "slstm":
+        return h + ssm.slstm_apply_full(cfg, blk["slstm"], h)
+    hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+    h = h + attn.attn_apply_full(cfg, run, blk["attn"], hn, positions)
+    return _ffn(cfg, blk, h)
+
+
 def forward(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor):
     """Training/eval forward. tokens: (B, S). Returns (logits, aux)."""
     h = _embed(cfg, params, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    for blk in params["layers"]:
-        hn = rms_norm(h, blk["norm"], cfg.norm_eps)
-        h = h + attn.attn_apply_full(cfg, run, blk["attn"], hn, positions)
-        h = _ffn(cfg, blk, h)
+    for blk, (kind, _) in zip(params["layers"], _kind_index(cfg)):
+        h = _block_full(cfg, run, blk, kind, h, positions)
     zero = torch.zeros((), device=h.device)
     return _head(cfg, params, h), {"moe_aux": zero, "moe_drop_frac": zero}
 
@@ -137,12 +182,30 @@ def prefill(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor
     positions = torch.arange(seq, device=h.device)[None, :]
     cache = init_cache(cfg, b, max_len, h.device)
     cache["pos"].fill_(seq)
-    for i, blk in enumerate(params["layers"]):
-        hn = rms_norm(h, blk["norm"], cfg.norm_eps)
-        y, (k, v) = attn.attn_apply_full(cfg, run, blk["attn"], hn, positions, return_kv=True)
-        attn.attn_fill_cache(cfg, {"k": cache["k"][i], "v": cache["v"][i]}, k, v)
-        h = _ffn(cfg, blk, h + y)
+    for blk, (kind, j) in zip(params["layers"], _kind_index(cfg)):
+        if kind == "mlstm":
+            y, state = ssm.mlstm_apply_full(cfg, blk["mlstm"], h, chunk=run.ssd_chunk, return_state=True)
+            cache["mlstm"][j].copy_(state)
+            h = h + y
+        elif kind == "slstm":
+            y, state = ssm.slstm_apply_full(cfg, blk["slstm"], h, return_state=True)
+            for key, t in state.items():
+                cache["slstm"][key][j].copy_(t)
+            h = h + y
+        else:
+            hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+            y, (k, v) = attn.attn_apply_full(cfg, run, blk["attn"], hn, positions, return_kv=True)
+            attn.attn_fill_cache(cfg, {"k": cache["k"][j], "v": cache["v"][j]}, k, v)
+            h = _ffn(cfg, blk, h + y)
     return _head(cfg, params, h[:, -1:]), cache
+
+
+def _write_rows(dst: torch.Tensor, new: torch.Tensor, active: Optional[torch.Tensor]) -> None:
+    """dst ← new in place, on the active rows (dim 0) only; the inactive
+    rows keep their bits."""
+    if active is not None:
+        new = torch.where(active.view(-1, *(1,) * (new.dim() - 1)), new, dst)
+    dst.copy_(new)
 
 
 def decode_step(
@@ -158,17 +221,31 @@ def decode_step(
     ``cache["pos"]`` is a per-slot (B,) position vector, so rows of the
     batch may sit at different cache positions (continuous batching).
     ``active`` is an optional (B,) bool mask for ragged batches: inactive
-    slots neither advance their position nor overwrite their cache slot
-    (their logits are garbage the caller ignores). The cache is updated in
-    place and returned.
+    slots neither advance their position nor overwrite their KV slot or
+    recurrent state (their logits are garbage the caller ignores). The
+    JAX package's ``decode_step`` advances the mLSTM and sLSTM state of
+    inactive rows too (ROADMAP C5); the port keeps them, so a parked
+    session resumes from its own state. The cache is updated in place and
+    returned.
     """
     h = _embed(cfg, params, tokens)
     pos = cache["pos"]
-    for i, blk in enumerate(params["layers"]):
-        hn = rms_norm(h, blk["norm"], cfg.norm_eps)
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-        h = h + attn.attn_apply_step(cfg, run, blk["attn"], layer_cache, hn, pos, active)
-        h = _ffn(cfg, blk, h)
+    for blk, (kind, j) in zip(params["layers"], _kind_index(cfg)):
+        if kind == "mlstm":
+            y, state = ssm.mlstm_apply_step(cfg, blk["mlstm"], cache["mlstm"][j], h)
+            _write_rows(cache["mlstm"][j], state, active)
+            h = h + y
+        elif kind == "slstm":
+            layer = {key: t[j] for key, t in cache["slstm"].items()}
+            y, state = ssm.slstm_apply_step(cfg, blk["slstm"], layer, h)
+            for key, t in state.items():
+                _write_rows(layer[key], t, active)
+            h = h + y
+        else:
+            hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+            layer_cache = {"k": cache["k"][j], "v": cache["v"][j]}
+            h = h + attn.attn_apply_step(cfg, run, blk["attn"], layer_cache, hn, pos, active)
+            h = _ffn(cfg, blk, h)
     logits = _head(cfg, params, h)
     if active is None:
         pos += 1
@@ -178,13 +255,21 @@ def decode_step(
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    """Zero-filled cache (decode-from-scratch, or a serving arena)."""
+    """Zero-filled cache (decode-from-scratch, or a serving arena), with
+    the parts the architecture has; ``max_len`` sizes the KV part only."""
     _check_ported(cfg)
-    cap = attn.cache_capacity(cfg, max_len)
-    shape = (cfg.num_layers, batch, cap, cfg.num_kv_heads, cfg.head_dim_)
-    dt = _compute_dtype(cfg)
-    return {
-        "pos": torch.zeros((batch,), dtype=torch.long, device=device),
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
-    }
+    counts = _kind_counts(cfg)
+    cache ={"pos": torch.zeros((batch,), dtype=torch.long, device=device)}
+    if "attn" in counts:
+        cap = attn.cache_capacity(cfg, max_len)
+        shape = (counts["attn"], batch, cap, cfg.num_kv_heads, cfg.head_dim_)
+        dt = _compute_dtype(cfg)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    if "mlstm" in counts:
+        one = ssm.mlstm_init_cache(cfg, batch, device)
+        cache["mlstm"] = one.expand(counts["mlstm"], *one.shape).contiguous()
+    if "slstm" in counts:
+        one = ssm.slstm_init_cache(cfg, batch, device)
+        cache["slstm"] = {k: t.expand(counts["slstm"], *t.shape).contiguous() for k, t in one.items()}
+    return cache

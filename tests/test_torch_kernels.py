@@ -1,12 +1,12 @@
 """K1 (flash-decode) and K2 (flash-attention forward) of the PyTorch port
-against the JAX package.
+against the JAX package (K3, the SSD scan, is in ``test_torch_ssm.py``).
 
 On the CPU the port's wrappers run each kernel's plain PyTorch version;
 here it is held against the Pallas kernel in interpret mode and against
 the jnp oracle in ``repro/kernels/ref.py``, on the same numpy inputs and
 to the tolerances of ``tests/test_kernels.py`` (fp32 2e-5; bf16 3e-2 for
-decode, 2e-2 for flash). The ``gpu``-marked tests hold the CUDA kernels
-against their plain versions on the card and skip elsewhere.
+decode, 2e-2 for flash). The ``gpu``-marked tests hold the CUDA kernels,
+K3 included, against their plain versions on the card and skip elsewhere.
 """
 
 import numpy as np
@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.ssm_scan import fold, ssm_scan_plain
 
 try:
     import jax.numpy as jnp
@@ -196,7 +197,8 @@ def test_wrappers_never_launch_on_cpu():
     _, k = _pair(rng, 1, 8, 2, 64)
     ops.flash_attention(q, k, k)
     ops.decode_attention(q[:, 0], k, k, torch.ones((1, 8), dtype=torch.bool))
-    assert ops.LAUNCHES == {"decode_attention": 0, "flash_attention": 0}
+    ops.ssm_scan(q, -torch.rand(1, 8, 2), k, k, chunk=4)
+    assert ops.LAUNCHES == {"decode_attention": 0, "flash_attention": 0, "ssm_scan": 0}
 
 
 # ---------------------------------------------------------------- on the card
@@ -252,3 +254,36 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, dtype, normalize):
     # fp32 sums in another order over S: 1e-4, relative to l's scale
     for a, b in zip(got, exp):
         assert float((a[rows] - b[rows]).abs().max()) < 1e-4 * max(1.0, float(b[rows].abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,chunk", [(100, 32), (40, 64), (64, 16)])  # pads | below one chunk | exact
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernel_matches_plain_on_card(cuda, S, chunk, dtype):
+    """K3 at small sizes: P odd (17, as mLSTM's head_dim + 1 is), S not a
+    multiple of the chunk, b in fp32 as the mLSTM path hands it. Each
+    element is held to its own scale, |plain| + the largest |plain| of its
+    row (last axis): fp32 1e-5 (sums in another order), bf16 1e-2 for y (it
+    is rounded to bf16: one ulp is at most 2^-8 of that scale)."""
+
+    def scaled_err(a, b):
+        a, b = a.float(), b.float()
+        scale = b.abs() + b.abs().amax(dim=-1, keepdim=True)
+        return float(((a - b).abs() / scale.clamp_min(1e-30)).max())
+
+    B, H, P, N = 2, 3, 17, 40
+    rng = np.random.default_rng(11)
+    x = _on(cuda, rng, B, S, H, P, dtype=dtype)
+    c = _on(cuda, rng, B, S, H, N, dtype=dtype)
+    b = _on(cuda, rng, B, S, H, N, dtype="float32") * 0.3
+    loga = -torch.from_numpy(rng.random((B, S, H)).astype(np.float32)).to(cuda) * 0.2
+    before = ops.LAUNCHES["ssm_scan"]
+    y, h = ops.ssm_scan(x, loga, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssm_scan"] == before + 1
+    ye, he = ssm_scan_plain(*fold(x, loga, b, c, chunk), chunk)
+    ye = ye.reshape(B, H, -1, P).transpose(1, 2)[:, :S]
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert y.dtype == x.dtype and y.shape == (B, S, H, P) and h.shape == (B, H, N, P)
+    assert scaled_err(y, ye) <= tol
+    assert scaled_err(h, he.reshape(B, H, N, P)) <= 1e-5
