@@ -8,11 +8,14 @@ toolkit: ``python3 chip_smoke.py``. It
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once) and prints what ``-Xptxas -v`` reports;
 3. holds K1 (flash-decode) against its plain PyTorch version, bf16 and
-   fp32: random validity, a ring full at capacity, a remainder tile, a row
-   valid only in the remainder tile, an all-invalid row, two-shard partials;
+   fp32: random validity, a ring full at capacity, a row valid only in the
+   last 32 keys, one valid only in the last split, an all-invalid row,
+   two-shard partials, at S = 2048 and 2050 and at the split boundaries
+   (below one split, one short of it, at it, one past it); and checks that
+   each row of a batch-8 call is bit-identical to that row called alone;
 4. holds K2 (flash-attention forward) against its plain version: causal
-   prefill, and a window with a query offset where a row's first visited
-   kv tile is fully masked;
+   prefill, Sq not a multiple of the 64-row q tile, and a window with a
+   query offset where a row's first visited 64-key tile is fully masked;
 5. holds K3 (the chunked SSD scan) against its plain version, bf16 and
    fp32, each element against its own scale: the mLSTM prefill shapes
    (input gates as the model draws them, and up to e^10), a sequence that
@@ -29,8 +32,12 @@ toolkit: ``python3 chip_smoke.py``. It
    kernel path against the plain path; checks that the full stack's
    logits are finite, and that a parked row's recurrent state is left bit
    for bit;
-9. times each kernel, its plain version and the PyTorch library call for
-   the same function (where one exists) at the main path's shapes, times
+9. times each kernel (K1 and K2 by replaying a CUDA graph of 20 calls, so
+   the wrapper's host time is out of the reading; also eagerly), its plain
+   version and the PyTorch library call for the same function (where one
+   exists) at the main path's shapes, K2 and SDPA also at B 8, Sq = 2048;
+   times a qwen3 decode step and prefill eagerly and as CUDA graphs (the
+   device's time without the host), times
    decode steps and prefills to show each kernel's share, and splits an
    xlstm prefill with CUDA events inside the call;
 10. prints one ``{"kernels": [...]}`` line with times and bounds, the card
@@ -92,6 +99,52 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
 
 
+# K1 and K2 before their Hopper redesign (PERF.md's kernel table, "earlier
+# ms": chip_smoke.py, eager, on an H100 80GB HBM3 at 700 W). Quoted, not
+# measured here, so they go to the --out record and a labelled printed line,
+# never into the kernels line
+EARLIER_MS = {"flash_decode": 1.1745, "flash_attention_fwd": 1.3177}
+# the kernels line holds names, strings, this run's measurements and
+# bound_ms; derived rates, constants and quoted times stay in --out's record
+LINE_KEYS = ("name", "route", "source", "replaces", "tpu_kernel", "launches", "launches_per_step",
+             "max_abs_err", "max_scaled_err", "ms", "kernel_ms", "eager_ms", "plain_ms", "library_ms",
+             "library_note", "timing", "bound_ms", "bound_by", "design")
+DESIGN = {
+    "flash_decode": "split S into 256-key blocks (fixed, batch-invariant), 16-byte loads, "
+                    "8 key rows in flight per lane, fixed-order combine kernel",
+    "flash_attention_fwd": "bf16 wgmma (Q K^T from swizzled smem, P V with P in registers), scores in "
+                           "registers, 64x64 tiles, three-stage cp.async ring, next tile's Q K^T overlapping "
+                           "this tile's softmax, latest q tiles first",
+    "ssd_scan": "two grids: C B^T decay weights in 64x64 tiles, then one block per (row, 32 columns "
+                "of P) over the chunks, fp32 CUDA cores",
+}
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, replayed ``replays`` times between two events. The host's
+    per-call cost (Python checks, allocation, ctypes) is out of the reading."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def timed_ms(fn, iters: int = 20) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, after a warm-up."""
     for _ in range(3):
@@ -119,7 +172,7 @@ def main(argv=None) -> int:
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.dataset import SyntheticCorpus
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
+    from repro_torch.kernels.decode_attention import SPLIT_KEYS, decode_attention_cuda, decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
     from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain, unfold
     from repro_torch.launch.serve import Request, ServeLoop
@@ -158,22 +211,36 @@ def main(argv=None) -> int:
     B, H, KH, D = 8, 16, 8, 128
     k1_err = {}
     rows = [0, 1, 3, 4, 5, 6, 7]  # all but the all-invalid row 2
+    k1_invariant = []
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
         worst = 0.0
-        for S in (2048, 2050):
+        # the path's cache length and one past it, then the split boundaries
+        for S in (2048, 2050, 100, SPLIT_KEYS - 1, SPLIT_KEYS, SPLIT_KEYS + 1):
             q = rnd(B, H, D, dtype=dtype)
             k, v = rnd(B, S, KH, D, dtype=dtype), rnd(B, S, KH, D, dtype=dtype)
             valid = (torch.rand(B, S, generator=gen, device=dev) > 0.3).to(torch.int32)
             valid[1] = 1  # ring full at capacity
             valid[2] = 0  # all-invalid row
             valid[3] = 0
-            valid[3, (S - 1) // 32 * 32:] = 1  # valid only in the last 32-key tile (the remainder at S = 2050)
+            valid[3, (S - 1) // 32 * 32:] = 1  # valid only in the last 32 keys
+            valid[5] = 0
+            valid[5, (S - 1) // SPLIT_KEYS * SPLIT_KEYS:] = 1  # valid only in the last split
             for normalize in (True, False):
                 got = decode_attention_cuda(q, k, v, valid, scale=D**-0.5, normalize=normalize)
                 exp = decode_attention_plain(q, k, v, valid, scale=D**-0.5, normalize=normalize)
                 torch.cuda.synchronize()
-                check(float(got[0][2].abs().max()) == 0.0 and float(got[2][2].max()) == 0.0,
-                      f"K1 all-invalid row is exactly zero ({dtype}, S={S})")
+                check(float(got[0][2].abs().max()) == 0.0 and float(got[2][2].max()) == 0.0
+                      and torch.equal(got[1][2], exp[1][2]),
+                      f"K1 all-invalid row is exactly zero, m = -1e30 ({dtype}, S={S})")
+                if S in (2048, 2050):  # each row alone gives the same bits as in the batch
+                    same = all(torch.equal(a[i:i + 1], b)
+                               for i in range(B)
+                               for a, b in zip(got, decode_attention_cuda(
+                                   q[i:i + 1], k[i:i + 1], v[i:i + 1], valid[i:i + 1], scale=D**-0.5,
+                                   normalize=normalize)))
+                    check(same, f"K1 batch-8 rows bit-identical to batch-1 calls ({dtype}, S={S}, "
+                                f"normalize={normalize})")
+                    k1_invariant.append(f"{dtype}, S={S}, normalize={normalize}")
                 if normalize:
                     worst = max(worst, err(got[0], exp[0]))
                 else:  # partials: acc and l grow with the number of valid keys
@@ -191,14 +258,18 @@ def main(argv=None) -> int:
         check(worst < tol, f"K1 vs plain {dtype}: {worst} >= {tol}")
         k1_err[str(dtype)] = worst
         print(f"K1 vs plain {dtype}: max abs err {worst:.3e} (tol {tol})")
+    print(f"K1 batch invariance: every row of a batch-8 call bit-identical to the row alone ({k1_invariant})")
+    record["k1_batch_invariant"] = k1_invariant
 
     # -- 4. K2 vs plain ---------------------------------------------------
     k2_err = {}
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
         worst = 0.0
-        # causal prefill; then a window with a query offset: rows late in a
-        # 64-row q tile find the tile's first visited kv tile fully masked
-        for Sq, Sk, win, off in ((1024, 1024, 0, 0), (256, 1280, 100, 1024)):
+        # causal prefill; Sq not a multiple of the 64-row q tile; then a
+        # window with a query offset: rows late in a 64-row q tile find the
+        # tile's first visited 64-key tile fully masked
+        for Sq, Sk, win, off in ((1024, 1024, 0, 0), (1000, 1000, 0, 0), (200, 1224, 100, 1024),
+                                 (256, 1280, 100, 1024)):
             q = rnd(1, Sq, H, D, dtype=dtype)
             k, v = rnd(1, Sk, KH, D, dtype=dtype), rnd(1, Sk, KH, D, dtype=dtype)
             got = flash_attention_cuda(q, k, v, q_offset=off, window=win, scale=D**-0.5)
@@ -526,16 +597,47 @@ def main(argv=None) -> int:
          xlaunches["ssm_scan"], f"{XL} per prefill (xlstm-1.3b serve)", k3_err),
     ):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        # K1 and K2 take tens of microseconds, less than their wrapper's host
+        # time, so a graph replay reads their device time; K3 (~0.8 ms) sets
+        # its shared-memory limit on every call and is timed eagerly
+        graphed = name != "ssd_scan"
+        device_ms = graph_ms if graphed else timed_ms
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu[0], "tpu_kernel": tpu[1],
             "launches": launches_n, "launches_per_step": per_step,
             "max_abs_err": max(errs.values()), "tol": {"bf16": BF16_TOL, "fp32": FP32_TOL},
-            "ms": timed_ms(fn), "plain_ms": timed_ms(plain), "library_ms": timed_ms(lib) if lib else None,
+            "ms": device_ms(fn), "eager_ms": timed_ms(fn), "plain_ms": timed_ms(plain),
+            "library_ms": device_ms(lib) if lib else None,
+            "timing": "CUDA graph of 20 calls, replayed 5 times" if graphed else "eager, CUDA events over 20 calls",
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops,
+            "bytes": nbytes, "flops": flops, "design": DESIGN[name],
         })
         kernels[-1]["kernel_ms"] = kernels[-1]["ms"]
         check(launches_n > 0, f"{name} was not launched on the main path")
+    kernels[0]["achieved_tb_per_s"] = k1_bytes / kernels[0]["ms"] / 1e9
+    kernels[1]["achieved_tflop_per_s"] = k2_flops / kernels[1]["ms"] / 1e9
+    # K2 and SDPA where blocks are plenty (B 8, Sq = Sk = 2048): the kernel's
+    # throughput, apart from the single wave of unequal causal tiles at B 1
+    q8, k8, v8 = rnd(8, 2 * Sq, H, D, dtype=torch.bfloat16), rnd(8, 2 * Sq, KH, D, dtype=torch.bfloat16), \
+        rnd(8, 2 * Sq, KH, D, dtype=torch.bfloat16)
+    k8_flops = 4 * 8 * H * D * (2 * Sq) * (2 * Sq + 1) // 2
+    k8_ms = graph_ms(lambda: flash_attention_cuda(q8, k8, v8, scale=D**-0.5))
+    k8_lib = graph_ms(lambda: F.scaled_dot_product_attention(q8.transpose(1, 2), k8.transpose(1, 2), v8.transpose(1, 2),
+                                                             is_causal=True, enable_gqa=True))
+    kernels[1]["b8_s2048"] = {"ms": k8_ms, "library_ms": k8_lib, "tflop_per_s": k8_flops / k8_ms / 1e9,
+                              "library_tflop_per_s": k8_flops / k8_lib / 1e9}
+    print(f"flash_attention_fwd at B 8, Sq = Sk = 2048: {k8_ms:.5f} ms ({k8_flops / k8_ms / 1e9:.1f} TFLOP/s), "
+          f"SDPA {k8_lib:.5f} ms ({k8_flops / k8_lib / 1e9:.1f} TFLOP/s) ({card})")
+    del q8, k8, v8
+    for kern in kernels[:2]:
+        rate = (f"{kern['achieved_tb_per_s']:.3f} TB/s" if "achieved_tb_per_s" in kern
+                else f"{kern['achieved_tflop_per_s']:.2f} TFLOP/s")
+        print(f"{kern['name']}: {kern['ms']:.5f} ms device ({rate}; bound {kern['bound_ms']:.5f} ms by "
+              f"{kern['bound_by']}), eager call {kern['eager_ms']:.5f} ms, SDPA {kern['library_ms']:.5f} ms ({card})")
+    record["earlier_ms"] = {"ms": EARLIER_MS, "from": "quoted from PERF.md (eager, before the redesign), "
+                                                      "not measured in this run"}
+    print("quoted from PERF.md, not measured in this run: before the redesign, eager, "
+          + ", ".join(f"{k} {v} ms" for k, v in EARLIER_MS.items()) + " (H100 80GB HBM3, 700 W)")
     kernels[2].update(tol={"bf16": K3_TOL[torch.bfloat16], "fp32": K3_TOL[torch.float32],
                            "scaled": True, "plus": "4 * 2^-24 * max |cum| of the case"},
                       max_scaled_err=max(k3_scaled.values()),
@@ -567,7 +669,13 @@ def main(argv=None) -> int:
 
     step_ms = host_ms(lambda: M.decode_step(cfg, kernel_run, params, arena, toks, active=act))
     prefill_ms = host_ms(lambda: M.prefill(cfg, kernel_run, params, prompt, 2048))
+    # the same step and prefill replayed as CUDA graphs: their device time
+    # with no host in the way, so 1 - graph / eager is the share of the
+    # eager call in which the device waits for the host
+    step_graph_ms = graph_ms(lambda: M.decode_step(cfg, kernel_run, params, arena, toks, active=act), iters=4)
+    prefill_graph_ms = graph_ms(lambda: M.prefill(cfg, kernel_run, params, prompt, 2048), iters=2)
     k1_share, k2_share = L * kernels[0]["ms"] / step_ms, L * kernels[1]["ms"] / prefill_ms
+    k1_eager_share, k2_eager_share = L * kernels[0]["eager_ms"] / step_ms, L * kernels[1]["eager_ms"] / prefill_ms
     # xlstm: a decode step with 8 slots; a 1024-token prefill split inside
     # itself: CUDA events around the whole prefill, around each K3 call (its
     # wrapper: padding, fold, kernel, unfold) and around each sLSTM block
@@ -605,13 +713,22 @@ def main(argv=None) -> int:
     splits = [split_prefill() for _ in range(2)]
     for total, part in splits:
         check(part["ssm_scan"] + part["slstm"] <= total, f"prefill parts {part} within the whole {total}")
-    record["breakdown"] = {"decode_step_ms": step_ms, "k1_share": k1_share,
-                           "prefill_1024_ms": prefill_ms, "k2_share": k2_share,
+    record["breakdown"] = {"decode_step_ms": step_ms, "k1_share": k1_share, "k1_eager_share": k1_eager_share,
+                           "decode_step_graph_ms": step_graph_ms, "decode_step_host_wait": 1 - step_graph_ms / step_ms,
+                           "k1_share_of_graph_step": L * kernels[0]["ms"] / step_graph_ms,
+                           "prefill_1024_ms": prefill_ms, "k2_share": k2_share, "k2_eager_share": k2_eager_share,
+                           "prefill_graph_ms": prefill_graph_ms, "prefill_host_wait": 1 - prefill_graph_ms / prefill_ms,
+                           "k2_share_of_graph_prefill": L * kernels[1]["ms"] / prefill_graph_ms,
                            "xlstm_decode_step_ms": x_step_ms,
                            "xlstm_prefill_1024": [{"ms": total, "k3_calls_ms": part["ssm_scan"],
                                                    "slstm_blocks_ms": part["slstm"]} for total, part in splits]}
-    print(f"decode step (8 slots at ~1024) {step_ms:.2f} ms, {L} x K1 = {k1_share:.1%} of it; "
-          f"prefill of 1024 tokens {prefill_ms:.2f} ms, {L} x K2 = {k2_share:.1%} of it ({card})")
+    print(f"decode step (8 slots at ~1024) {step_ms:.2f} ms, {L} x K1 = {k1_share:.1%} of it on the device, "
+          f"{k1_eager_share:.1%} as eager calls; prefill of 1024 tokens {prefill_ms:.2f} ms, {L} x K2 = "
+          f"{k2_share:.1%} of it on the device, {k2_eager_share:.1%} as eager calls ({card})")
+    print(f"as CUDA graphs: decode step {step_graph_ms:.3f} ms ({L} x K1 = {L * kernels[0]['ms'] / step_graph_ms:.1%}), "
+          f"prefill {prefill_graph_ms:.3f} ms ({L} x K2 = {L * kernels[1]['ms'] / prefill_graph_ms:.1%}); the eager "
+          f"step waits for the host {1 - step_graph_ms / step_ms:.1%} of its time, the prefill "
+          f"{1 - prefill_graph_ms / prefill_ms:.1%} ({card})")
     print(f"xlstm-1.3b: decode step (8 slots) {x_step_ms:.2f} ms ({card})")
     for total, part in splits:
         print(f"xlstm-1.3b prefill of 1024 tokens (CUDA events inside one call): {total:.2f} ms; {XL} K3 calls "
@@ -621,7 +738,10 @@ def main(argv=None) -> int:
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(record, indent=1, default=str))
-    print(json.dumps({"kernels": kernels}))
+    print(f"tolerances against the plain versions: flash_decode and flash_attention_fwd {BF16_TOL} (bf16), "
+          f"{FP32_TOL} (fp32); ssd_scan {K3_TOL[torch.bfloat16]} (bf16), {K3_TOL[torch.float32]} (fp32) "
+          "element by element, scaled, plus 4 * 2^-24 * max |cum|")
+    print(json.dumps({"kernels": [{k: kern[k] for k in LINE_KEYS if k in kern} for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

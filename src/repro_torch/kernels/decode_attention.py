@@ -12,6 +12,11 @@ zeros, so a row with no valid key gives ``out = 0`` and ``l = 0``.
 ``normalize=False`` returns the unnormalised partials ``(acc, m, l)``.
 This differs from the masked-softmax ``einsum`` path, which spreads an
 all-invalid row uniformly.
+
+The kernel cuts S into splits of :data:`SPLIT_KEYS` keys, one block each,
+and combines their partials in split order (:func:`split_plan`). The split
+length depends on S alone, never on the batch or the card, so a row's
+result is the same bits whatever batch it is decoded in.
 """
 
 from __future__ import annotations
@@ -24,6 +29,21 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+SPLIT_KEYS = 256  # keys per block of the CUDA kernel (kSplit in the source)
+
+
+def split_plan(seq_len: int) -> tuple[int, int]:
+    """``(keys per split, number of splits)`` for a cache of ``seq_len``
+    keys; the last split may be short."""
+    if seq_len <= 0:
+        raise ValueError(f"split_plan: seq_len {seq_len} must be positive")
+    return SPLIT_KEYS, -(-seq_len // SPLIT_KEYS)
+
+
+def scratch_shape(batch: int, heads: int, head_dim: int, seq_len: int) -> tuple[int, int, int, int]:
+    """Shape of the fp32 scratch the wrapper hands the kernel: one partial
+    ``(acc (head_dim), m, l)`` per (row, q head, split)."""
+    return batch, heads, split_plan(seq_len)[1], head_dim + 2
 
 
 def decode_attention_plain(q, k, v, valid, *, scale: float, normalize: bool = True):
@@ -53,8 +73,8 @@ _L = ctypes.c_longlong
 @functools.cache
 def _entry():
     fn = _build.load("decode_attention").k1_decode_attention
-    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                   _L, _L, _L, _L, _L, _L, ctypes.c_float, _I, _P]
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _L, _L, _L, _L, _L, _L, _I, _I, ctypes.c_float, _I, _P]
     fn.restype = _I
     return fn
 
@@ -80,15 +100,21 @@ def decode_attention_cuda(q, k, v, valid, *, scale: float, normalize: bool = Tru
     if not (q.is_contiguous() and valid.is_contiguous() and k.stride(3) == 1 and v.stride(3) == 1):
         raise ValueError("decode_attention_cuda: q and valid must be contiguous, k and v "
                          "contiguous along head_dim")
+    vec = 16 // k.element_size()  # the kernel reads k and v in 16-byte vectors
+    if any(t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]) for t in (k, v)):
+        raise ValueError("decode_attention_cuda: k and v must be 16-byte aligned with strides that "
+                         f"are multiples of {vec} elements")
+    split_keys, n_split = split_plan(s)
+    part = torch.empty(scratch_shape(b, h, d, s), dtype=torch.float32, device=q.device)
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), m.data_ptr(), l.data_ptr(), b, s, h, kh, d,
+        part.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), b, s, h, kh, d,
         k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-        scale, int(normalize), stream,
+        split_keys, n_split, scale, int(normalize), stream,
     )
     _build.check(err, "decode_attention kernel")
     return out, m, l

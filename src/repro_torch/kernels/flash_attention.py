@@ -11,6 +11,11 @@ Contract of both: q ``(B, Sq, H, D)``; k, v ``(B, Sk, KH, D)``; query row
 ``kpos > qpos - window`` when ``window > 0``). fp32 softmax with masked
 probabilities written as exact zeros; output in q's dtype. Forward only:
 the recompute backward lands with training.
+
+On the card bf16 runs on the tensor cores (``wgmma`` on 64 x 64 tiles
+copied in by 16-byte ``cp.async``), so q, k and v must be 16-byte aligned
+with strides of whole 8-value chunks; fp32, which only the tests use, runs
+on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -76,18 +81,25 @@ def flash_attention_cuda(q, k, v, *, q_offset: int = 0, window: int = 0, scale: 
                          f"v {tuple(v.shape)} do not agree")
     if d not in (64, 128, 256):
         raise ValueError(f"flash_attention_cuda: head_dim {d} is not 64, 128 or 256")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention_cuda: batch * heads {b * h} exceeds the grid")
     if not (q.stride(3) == 1 and k.stride(3) == 1 and v.stride(3) == 1):
         raise ValueError("flash_attention_cuda: q, k, v must be contiguous along head_dim")
+    if q.dtype == torch.float32 and b * h > 65535:
+        raise ValueError(f"flash_attention_cuda: batch * heads {b * h} exceeds the fp32 grid")
+    if q.dtype == torch.bfloat16:  # the tensor-core body copies 16-byte chunks of 8 values
+        if any(t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]) for t in (q, k, v)):
+            raise ValueError("flash_attention_cuda: bf16 q, k, v must be 16-byte aligned with "
+                             "strides that are multiples of 8 elements")
+        if -(-sq // 64) > 65535:
+            raise ValueError(f"flash_attention_cuda: {sq} query rows exceed the grid")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry()(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kh, d,
-        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
-        q_offset, window, scale, stream,
-    )
+    with torch.cuda.device(q.device):  # the kernel launches on, and opts in on, the current device
+        err = _entry()(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, sk, h, kh, d,
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
+            q_offset, window, scale, stream,
+        )
     _build.check(err, "flash_attention kernel")
     return out

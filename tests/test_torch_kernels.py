@@ -14,8 +14,14 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.decode_attention import (
+    SPLIT_KEYS,
+    decode_attention_cuda,
+    decode_attention_plain,
+    scratch_shape,
+    split_plan,
+)
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.ssm_scan import fold, ssm_scan_plain
 
 try:
@@ -201,6 +207,33 @@ def test_wrappers_never_launch_on_cpu():
     assert ops.LAUNCHES == {"decode_attention": 0, "flash_attention": 0, "ssm_scan": 0}
 
 
+@pytest.mark.parametrize("seq_len", [1, SPLIT_KEYS - 1, SPLIT_KEYS, SPLIT_KEYS + 1, 2048, 2050])
+def test_decode_split_plan_depends_on_seq_len_only(seq_len):
+    """K1 cuts S into fixed-length splits: the plan is a function of S
+    alone, so a row's partials (and their combine order) are the same in
+    any batch; the scratch holds one (acc, m, l) per row, head and split."""
+    keys, n = split_plan(seq_len)
+    assert keys == SPLIT_KEYS
+    assert (n - 1) * keys < seq_len <= n * keys
+    for b, h, d in ((1, 16, 128), (8, 16, 128), (3, 6, 64)):
+        assert scratch_shape(b, h, d, seq_len) == (b, h, n, d + 2)
+
+
+def test_decode_split_plan_rejects_empty_cache():
+    with pytest.raises(ValueError):
+        split_plan(0)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """On the CPU the wrappers in ops run the plain versions; the kernels'
+    own entry points refuse CPU tensors before touching the library."""
+    q = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q, q, scale=0.125)
+    with pytest.raises(ValueError):
+        decode_attention_cuda(q[:, 0], q, q, torch.ones(1, 64, dtype=torch.int32), scale=0.125)
+
+
 # ---------------------------------------------------------------- on the card
 
 
@@ -217,8 +250,17 @@ def _on(dev, rng, *shape, dtype):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, DTYPES[dtype])
 
 
+# on the card also: the qwen3 prefill shape, a window and offset where a
+# row's first 64-key tile is all masked, Sq not a multiple of the 64-row tile
+CARD_FLASH_CASES = FLASH_CASES + [
+    (1, 1024, 1024, 16, 8, 128, 0, 0, 64, 64),
+    (1, 100, 1124, 4, 2, 128, 70, 1024, 64, 64),
+    (2, 200, 200, 4, 2, 64, 0, 0, 64, 64),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", CARD_FLASH_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain_on_card(cuda, case, dtype):
     B, Sq, Sk, H, KH, D, win, off, _, _ = case
@@ -233,11 +275,18 @@ def test_flash_kernel_matches_plain_on_card(cuda, case, dtype):
     assert float((out.float() - exp.float()).abs().max()) < tol
 
 
+# on the card also K1's split boundaries: S below one split, one short of
+# it, at it, one past it, and a ragged last split
+SPLIT_CASES = [(4, s, 8, 4, 128, 0) for s in (100, SPLIT_KEYS - 1, SPLIT_KEYS, SPLIT_KEYS + 1, 3 * SPLIT_KEYS + 7)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", DECODE_CASES + [(8, 2050, 16, 8, 128, 512)])
+@pytest.mark.parametrize("case", DECODE_CASES + [(8, 2050, 16, 8, 128, 512)] + SPLIT_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("normalize", [True, False])
 def test_decode_kernel_matches_plain_on_card(cuda, case, dtype, normalize):
+    """Row 0 has no valid key (exact zeros, m = -1e30); row 1, where there
+    is one, only keys of the kernel's last split."""
     B, S, H, KH, D, _ = case
     rng = np.random.default_rng(10)
     q = _on(cuda, rng, B, H, D, dtype=dtype)
@@ -246,11 +295,13 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, dtype, normalize):
     rows = slice(1, None) if B > 1 else slice(None)
     if B > 1:
         valid[0] = 0  # all-invalid row
+        valid[1, :(S - 1) // SPLIT_KEYS * SPLIT_KEYS] = 0  # valid only in the last split
     got = decode_attention_cuda(q, k, v, valid, scale=D**-0.5, normalize=normalize)
     exp = decode_attention_plain(q, k, v, valid, scale=D**-0.5, normalize=normalize)
     torch.cuda.synchronize()
     if B > 1:
         assert float(got[0][0].abs().max()) == 0.0 and float(got[2][0].max()) == 0.0
+        assert torch.equal(got[1][0], exp[1][0])  # both keep the -1e30 surrogate of -inf
     # fp32 sums in another order over S: 1e-4, relative to l's scale
     for a, b in zip(got, exp):
         assert float((a[rows] - b[rows]).abs().max()) < 1e-4 * max(1.0, float(b[rows].abs().max()))
@@ -287,3 +338,23 @@ def test_ssm_scan_kernel_matches_plain_on_card(cuda, S, chunk, dtype):
     assert y.dtype == x.dtype and y.shape == (B, S, H, P) and h.shape == (B, H, N, P)
     assert scaled_err(y, ye) <= tol
     assert scaled_err(h, he.reshape(B, H, N, P)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [2048, 2050])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_decode_kernel_batch_invariant_on_card(cuda, S, normalize):
+    """Row i of a batch-8 call is bit-identical to row i called alone: the
+    split length depends on S only and the splits combine in a fixed order."""
+    B, H, KH, D = 8, 16, 8, 128
+    rng = np.random.default_rng(12)
+    q = _on(cuda, rng, B, H, D, dtype="bfloat16")
+    k, v = (_on(cuda, rng, B, S, KH, D, dtype="bfloat16") for _ in range(2))
+    valid = torch.from_numpy(rng.random((B, S)) > 0.3).to(cuda, torch.int32)
+    valid[2] = 0
+    whole = decode_attention_cuda(q, k, v, valid, scale=D**-0.5, normalize=normalize)
+    for i in range(B):
+        alone = decode_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1], valid[i:i + 1], scale=D**-0.5,
+                                      normalize=normalize)
+        for a, b in zip(whole, alone):
+            assert torch.equal(a[i:i + 1], b)
