@@ -94,13 +94,15 @@ def combine_decode_partials(outs, ms, ls):
 def ssm_scan(x, loga, b, c, chunk: int = 256):
     """Chunked SSD scan from a zero state; x (B, S, H, P), loga (B, S, H)
     fp32, b/c (B, S, H, N). Any S: it is padded to a multiple of
-    ``min(chunk, S)`` with identity steps. Returns ``(y (B, S, H, P) in
+    ``min(chunk, S)`` with identity steps (and P and N to multiples of 8
+    with zero columns, cut off again). Returns ``(y (B, S, H, P) in
     x's dtype, h (B, H, N, P) fp32)``.
 
     The CUDA kernel has no backward: on the card this raises for inputs
     that require a gradient rather than detach them silently.
     """
     batch, seq = x.shape[:2]
+    p, n = x.shape[-1], b.shape[-1]
     if x.device.type == "cpu":
         y, h = ssm_scan_plain(*fold(x, loga, b, c, chunk), chunk)
     else:
@@ -109,4 +111,4 @@ def ssm_scan(x, loga, b, c, chunk: int = 256):
                                "that do not require grad (torch.no_grad())")
         y, h = ssm_scan_cuda(*fold(x, loga, b, c, chunk), chunk)
         LAUNCHES["ssm_scan"] += 1
-    return unfold(y, h, batch, seq)
+    return unfold(y, h, batch, seq, p, n)

@@ -16,8 +16,20 @@ from ``h_0 = 0``, evaluated in chunks of ``L = min(chunk, S)`` steps, with
 ``S % L == 0`` (the Pallas kernel asserts the same). Per chunk:
 ``cum = cumsum(loga)``, ``y = (C Bᵀ ∘ exp(cum_t − cum_s) ∘ tril) X +
 (C · exp(cum)) h``, then ``h ← exp(cum_L) h + (B · exp(cum_L − cum))ᵀ X``.
-All arithmetic in fp32 whatever the input types (x and c may be bf16, b
-fp32 or bf16); y comes back in x's dtype, the final h in fp32.
+x and c may be bf16 or fp32, b either; y comes back in x's dtype, the
+final h in fp32.
+
+Precision: every product is taken to about 2⁻²¹ of its size and every sum
+in fp32 (fp64 where x and c are fp32). The kernel computes its products on
+TF32 tensor cores: it writes each fp32 operand ``a`` as ``hi + lo``, both
+TF32 (``hi`` is ``a`` rounded to TF32, ``lo`` is ``a − hi`` rounded, so
+``|a − hi − lo| ≤ 2⁻²² |a|``), and takes ``hi·b + lo·b`` where the other
+operand is bf16 (exact in TF32). On the fp32 path (both operands fp32)
+it writes each as three TF32 parts, whose sum is exact, and keeps every
+product of parts above 2⁻³³ of the whole. One TF32 pass alone (2⁻¹¹)
+would miss the limits the kernel is held to. The plain version sums in
+its inputs' promoted type, at least fp32: fp32 for bf16 and fp32 inputs
+(the port's path on the CPU), fp64 for fp64 inputs.
 """
 
 from __future__ import annotations
@@ -31,18 +43,28 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 
+ALIGN = 8  # the kernel copies rows in 16-byte pieces: P and N are padded to multiples of 8
+
+
 def fold(x, loga, b, c, chunk: int):
     """Model layout ``x (B, S, H, P)``, ``loga (B, S, H)``, ``b``/``c
     (B, S, H, N)`` → the folded layout, with S padded to a multiple of
     ``L = min(chunk, S)`` by identity steps (``loga = 0``, ``b = x = 0``:
     the state passes through unchanged), as ``models/ssm.py::chunked_ssd``
-    of the JAX package pads."""
+    of the JAX package pads, and P and N padded to multiples of ``ALIGN``
+    by zero columns: zero columns of x give zero columns of y and h, zero
+    columns of b and c zero rows of h, and neither changes the rest.
+    :func:`unfold` cuts them off again."""
     B, S, H, P = x.shape
+    N = b.shape[-1]
     pad = (-S) % min(chunk, S)
+    pp, pn = (-P) % ALIGN, (-N) % ALIGN
+    if pad or pp:
+        x = F.pad(x, (0, pp, 0, 0, 0, pad))
+    if pad or pn:
+        b = F.pad(b, (0, pn, 0, 0, 0, pad))
+        c = F.pad(c, (0, pn, 0, 0, 0, pad))
     if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        b = F.pad(b, (0, 0, 0, 0, 0, pad))
-        c = F.pad(c, (0, 0, 0, 0, 0, pad))
         loga = F.pad(loga, (0, 0, 0, pad))
     sp = S + pad
 
@@ -52,13 +74,13 @@ def fold(x, loga, b, c, chunk: int):
     return f(x), f(loga), f(b), f(c)
 
 
-def unfold(y, h, batch: int, seq: int):
-    """Folded ``y (BH, S', P)``, ``h (BH, N, P)`` → ``(B, S, H, P)`` (the
-    padding cut off) and ``(B, H, N, P)``."""
-    bh, sp, p = y.shape
+def unfold(y, h, batch: int, seq: int, p: int, n: int):
+    """Folded ``y (BH, S', P')``, ``h (BH, N', P')`` → ``(B, S, H, P)`` and
+    ``(B, H, N, P)``, the padding of :func:`fold` cut off."""
+    bh, sp, pp = y.shape
     heads = bh // batch
-    y = y.reshape(batch, heads, sp, p).transpose(1, 2)[:, :seq]
-    return y, h.reshape(batch, heads, h.shape[1], p)
+    y = y.reshape(batch, heads, sp, pp).transpose(1, 2)[:, :seq, :, :p]
+    return y, h.reshape(batch, heads, h.shape[1], pp)[:, :, :n, :p]
 
 
 def _chunk_len(s: int, chunk: int) -> int:
@@ -72,15 +94,22 @@ def _chunk_len(s: int, chunk: int) -> int:
 def ssm_scan_plain(x, loga, b, c, chunk: int):
     """The chunked algorithm of the JAX package's ``chunked_ssd`` step by
     step, on the folded layout. Returns ``(y (BH, S, P) in x.dtype,
-    h (BH, N, P) fp32)``."""
+    h (BH, N, P))``, every sum and h in the inputs' promoted type, at least
+    fp32: fp32 for bf16 and fp32 inputs, as the JAX package sums; fp64 for
+    fp64 inputs, which the checks on the card hand it to hold the kernel
+    against an exact result (summed in fp32, at input gates near e^10, it is
+    itself up to 5e-5 of an element's scale from that result, beyond the
+    kernel's 1e-5: ``scripts/k3_precision.py``).
+    """
     bh, s, p = x.shape
     n = b.shape[-1]
     L = _chunk_len(s, chunk)
     k = s // L
-    xk = x.reshape(bh, k, L, p).float()
-    bk = b.reshape(bh, k, L, n).float()
-    ck = c.reshape(bh, k, L, n).float()
-    cum = torch.cumsum(loga.reshape(bh, k, L).float(), dim=2)  # inclusive
+    acc = functools.reduce(torch.promote_types, (x.dtype, loga.dtype, b.dtype, c.dtype), torch.float32)
+    xk = x.reshape(bh, k, L, p).to(acc)
+    bk = b.reshape(bh, k, L, n).to(acc)
+    ck = c.reshape(bh, k, L, n).to(acc)
+    cum = torch.cumsum(loga.reshape(bh, k, L).to(acc), dim=2)  # inclusive
     total = cum[:, :, -1]
 
     # intra-chunk quadratic term, decay-weighted and causal; the exponent is
@@ -95,7 +124,7 @@ def ssm_scan_plain(x, loga, b, c, chunk: int):
     s_k = (bk * sdecay[..., None]).transpose(-1, -2) @ xk  # (bh, k, n, p)
 
     # inter-chunk sequential pass over the chunks
-    h = torch.zeros((bh, n, p), dtype=torch.float32, device=x.device)
+    h = torch.zeros((bh, n, p), dtype=acc, device=x.device)
     y_inter = []
     for i in range(k):
         y_inter.append((ck[:, i] @ h) * torch.exp(cum[:, i])[..., None])
@@ -107,22 +136,25 @@ def ssm_scan_plain(x, loga, b, c, chunk: int):
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-MAX_CHUNK = 1024  # the kernel's block prefix sum holds 4 values per thread
+MAX_CHUNK = 1024  # the kernel keeps a chunk's cumulative log-decay in shared memory
+_TILE = 64  # the kernel's t and s tile: W is kept per chunk at L rounded up to it
 
 
 @functools.cache
 def _entry():
     fn = _build.load("ssm_scan").k3_ssm_scan
-    fn.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     return fn
 
 
 def ssm_scan_cuda(x, loga, b, c, chunk: int):
     """Launch the CUDA kernel. Same arguments and results as the plain
-    version. x and c share float32 or bfloat16, b is either, loga is
-    float32; every tensor contiguous. Checks what the kernel takes and
-    raises on anything else."""
+    version, on :func:`fold`'s output: x and c share float32 or bfloat16, b
+    is either, loga is float32; every tensor contiguous, P and N multiples
+    of ``ALIGN``. Checks what the kernel takes and raises on anything else.
+    Allocates its outputs and scratch with ``torch.empty``, so a call can be
+    captured in a CUDA graph."""
     bh, s, p = x.shape
     n = b.shape[-1]
     if not (x.is_cuda and all(t.device == x.device for t in (loga, b, c))):
@@ -135,19 +167,28 @@ def ssm_scan_cuda(x, loga, b, c, chunk: int):
     if loga.shape != (bh, s) or b.shape != (bh, s, n) or c.shape != b.shape:
         raise ValueError(f"ssm_scan_cuda: shapes x {tuple(x.shape)}, loga {tuple(loga.shape)}, "
                          f"b {tuple(b.shape)}, c {tuple(c.shape)} do not agree")
-    if not all(t.is_contiguous() for t in (x, loga, b, c)):
-        raise ValueError("ssm_scan_cuda: x, loga, b, c must be contiguous")
+    if p % ALIGN or n % ALIGN:
+        raise ValueError(f"ssm_scan_cuda: P {p} and N {n} must be multiples of {ALIGN}; pad them first "
+                         "(kernels/ssm_scan.py::fold)")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (x, loga, b, c)):
+        raise ValueError("ssm_scan_cuda: x, loga, b, c must be contiguous and 16-byte aligned")
     L = _chunk_len(s, chunk)
-    if L > MAX_CHUNK or bh > 65535 or s // L > 65535:
-        raise ValueError(f"ssm_scan_cuda: chunk {L} (at most {MAX_CHUNK}), rows {bh} or chunks "
-                         f"{s // L} (at most 65535) out of range")
-    y =torch.empty_like(x)
+    k = s // L
+    if L > MAX_CHUNK or bh * k > 65535:
+        raise ValueError(f"ssm_scan_cuda: chunk {L} (at most {MAX_CHUNK}) or rows x chunks {bh * k} "
+                         "(at most 65535) out of range")
+    y = torch.empty_like(x)
     h = torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
-    wt = torch.empty((bh, s // L, L, L), dtype=torch.float32, device=x.device)  # scratch: the intra-chunk weights
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _entry()(
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[b.dtype], x.data_ptr(), loga.data_ptr(), b.data_ptr(),
-        c.data_ptr(), y.data_ptr(), h.data_ptr(), wt.data_ptr(), bh, s, p, n, L, stream,
-    )
+    lp = -(-L // _TILE) * _TILE
+    # scratch: the state entering each chunk after the first, and the
+    # intra-chunk weights W
+    hs = torch.empty((bh, k - 1, n, p), dtype=torch.float32, device=x.device)
+    w = torch.empty((bh, k, lp, lp), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):  # the kernel launches on, and opts in on, the current device
+        err = _entry()(
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[b.dtype], x.data_ptr(), loga.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), h.data_ptr(), hs.data_ptr(), w.data_ptr(), bh, s, p, n, L,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _build.check(err, "ssm_scan kernel")
     return y, h

@@ -28,7 +28,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.data.dataset import SyntheticCorpus
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssm_scan import fold, ssm_scan_plain
+from repro_torch.kernels.ssm_scan import ALIGN, fold, ssm_scan_plain, unfold
 from repro_torch.launch.serve import Request, ServeLoop
 from repro_torch.models import model as M
 from repro_torch.models import ssm
@@ -138,14 +138,17 @@ def test_chunked_ssd_pads_like_jax(S, chunk):
 
 
 def test_scan_fold_pads_with_identity_steps():
+    """S pads to whole chunks with identity steps; P (5) and N (4) pad to
+    multiples of 8 with zero columns."""
     x = torch.randn(2, 10, 3, 5)
     la = -torch.rand(2, 10, 3)
     b, c = torch.randn(2, 10, 3, 4), torch.randn(2, 10, 3, 4)
     xf, laf, bf, cf = fold(x, la, b, c, chunk=4)
-    assert xf.shape == (6, 12, 5) and laf.shape == (6, 12) and bf.shape == cf.shape == (6, 12, 4)
+    assert xf.shape == (6, 12, 8) and laf.shape == (6, 12) and bf.shape == cf.shape == (6, 12, 8)
     assert all(t.is_contiguous() for t in (xf, laf, bf, cf))
     assert float(laf[:, 10:].abs().max()) == 0.0 and float(xf[:, 10:].abs().max()) == 0.0
-    assert torch.equal(xf[4, :10], x[1, :, 1])
+    assert float(xf[..., 5:].abs().max()) == 0.0 and float(bf[..., 4:].abs().max()) == float(cf[..., 4:].abs().max()) == 0.0
+    assert torch.equal(xf[4, :10, :5], x[1, :, 1])
     with pytest.raises(ValueError, match="not a multiple"):
         ssm_scan_plain(x[:, :, 0], la[:, :, 0], b[:, :, 0], c[:, :, 0], chunk=4)
 
@@ -162,6 +165,124 @@ def test_ssm_scan_off_cpu_never_falls_back():
     with pytest.raises(ValueError, match="CUDA device"):
         ops.ssm_scan(x.detach(), la, b, b, chunk=4)
     assert ops.LAUNCHES["ssm_scan"] == 0
+
+
+@pytest.mark.parametrize("P", [17, 64, 65, 513])
+def test_fold_unfold_round_trip_pads_p(P):
+    """fold pads P to a multiple of ALIGN (the kernel's 16-byte rows) and
+    unfold cuts it off: y and h come back at their own width, unchanged."""
+    B, S, H, N = 2, 24, 3, 16
+    x, b, c = torch.randn(B, S, H, P), torch.randn(B, S, H, N), torch.randn(B, S, H, N)
+    la = -torch.rand(B, S, H)
+    xf, laf, bf, cf = fold(x, la, b, c, chunk=8)
+    pp = -(-P // ALIGN) * ALIGN
+    assert xf.shape == (B * H, S, pp) and bf.shape == cf.shape == (B * H, S, N)
+    assert bool((xf[..., P:] == 0).all())
+    hf = torch.randn(B * H, N, pp)
+    y, h = unfold(xf, hf, B, S, P, N)
+    assert y.shape == (B, S, H, P) and h.shape == (B, H, N, P)
+    assert torch.equal(y, x) and torch.equal(h, hf.reshape(B, H, N, pp)[..., :P])
+
+
+@pytest.mark.parametrize("P", [17, 65, 513])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_scan_on_padded_fold_is_bit_identical(P, dtype):
+    """The plain scan on fold's padded layout equals the scan on the
+    unpadded one bit for bit, and the padded columns of y and h are exactly
+    zero: padding changes nothing the kernel is held against."""
+    B, S, H, N = 1, 64, 2, 24
+    g = torch.Generator().manual_seed(P)
+    dt = getattr(torch, dtype)
+    x, c = torch.randn(B, S, H, P, generator=g).to(dt), torch.randn(B, S, H, N, generator=g).to(dt)
+    b = torch.randn(B, S, H, N, generator=g) * 0.3
+    la = -torch.rand(B, S, H, generator=g) * 0.2
+    xf, laf, bf, cf = fold(x, la, b, c, chunk=32)
+    y0, h0 = ssm_scan_plain(xf[..., :P].contiguous(), laf, bf, cf, 32)  # the layout without padding
+    y1, h1 = ssm_scan_plain(xf, laf, bf, cf, 32)
+    assert y1.shape[-1] == h1.shape[-1] == -(-P // ALIGN) * ALIGN
+    assert torch.equal(y1[..., :P], y0) and torch.equal(h1[..., :P], h0)
+    assert bool((y1[..., P:] == 0).all()) and bool((h1[..., P:] == 0).all())
+
+
+def _tf32(a):
+    """Round fp32 to TF32 as the kernel's ``cvt.rna.tf32.f32`` does: add half
+    of the 13 low mantissa bits, then mask them off."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a, b, exact_a, exact_b, split=True):
+    """a @ b the way the kernel takes its products: an operand that came in
+    bf16 (exact) as it is, an fp32 one as hi + lo (both TF32), the products
+    hi·hi' (+ hi·lo' + lo·hi'), each exact in fp32, summed in fp32.
+    ``split=False`` takes one TF32 pass on the fp32 operands instead."""
+    ah = a if exact_a else _tf32(a)
+    bh = b if exact_b else _tf32(b)
+    out = ah @ bh
+    if split and not exact_b:
+        out = out + ah @ _tf32(b - bh)
+    if split and not exact_a:
+        out = out + _tf32(a - ah) @ bh
+    return out
+
+
+def _split_scan(x, loga, b, c, chunk, split=True):
+    """``ssm_scan_plain``'s chunked algorithm with every product taken as
+    :func:`_split_mm` takes it (x and c exact if they came in bf16)."""
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    L = min(chunk, s)
+    k = s // L
+    xe = x.dtype == torch.bfloat16
+    xk = x.reshape(bh, k, L, p).float()
+    bk = b.reshape(bh, k, L, n).float()
+    ck = c.reshape(bh, k, L, n).float()
+    cum = torch.cumsum(loga.reshape(bh, k, L), dim=2)
+    total = cum[:, :, -1]
+    cb = _split_mm(ck, bk.transpose(-1, -2), xe, False, split)
+    decay = torch.exp(torch.clamp_max(cum[..., :, None] - cum[..., None, :], 0.0))
+    w = torch.where(torch.ones((L, L), dtype=torch.bool).tril(), cb * decay, 0.0)
+    y = _split_mm(w, xk, False, xe, split)
+    s_k = _split_mm((bk * torch.exp(total[..., None] - cum)[..., None]).transpose(-1, -2), xk, False, xe, split)
+    h = torch.zeros((bh, n, p))
+    y_inter = []
+    for i in range(k):
+        y_inter.append(_split_mm(ck[:, i], h, xe, False, split) * torch.exp(cum[:, i])[..., None])
+        h = torch.exp(total[:, i])[:, None, None] * h + s_k[:, i]
+    return (y + torch.stack(y_inter, dim=1)).reshape(bh, s, p).to(x.dtype), h
+
+
+def _scaled_err(a, b):
+    """Largest |a - b| / (|b| + the largest |b| of its row): each element
+    against its own scale, as chip_smoke.py and the gpu tests hold K3."""
+    a, b = a.float(), b.float()
+    scale = b.abs() + b.abs().amax(dim=-1, keepdim=True)
+    return float(((a - b).abs() / scale.clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_tf32_split_meets_the_kernel_limits(dtype):
+    """The kernel's precision choice, where it can run: at a reduced width
+    (N = 64, P = 65, four chunks of 64, mLSTM-like gates), the plain
+    algorithm with every product taken on split TF32 operands stays within
+    the limits the kernel is held to on the card (y 1e-2 in bf16 and 1e-5
+    in fp32, h 1e-5, scaled), while one TF32 pass on the fp32 operands
+    misses the limit on h."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(16)
+    B, S, H, P, N, chunk = 1, 256, 2, 65, 64, 64
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(np.float32)).to(dt)
+    x[..., -1] = 1  # the mLSTM normaliser column
+    c = torch.from_numpy(rng.standard_normal((B, S, H, N)).astype(np.float32)).to(dt)
+    gate = np.exp(np.clip(rng.standard_normal((B, S, H, 1)), -10, 10))
+    b = torch.from_numpy((rng.standard_normal((B, S, H, N)) / N**0.5 * gate).astype(np.float32))
+    la = torch.nn.functional.logsigmoid(torch.from_numpy(3 + rng.standard_normal((B, S, H)).astype(np.float32)))
+    f = fold(x, la, b, c, chunk)
+    ye, he = ssm_scan_plain(*f, chunk)
+    ys, hs = _split_scan(*f, chunk)
+    assert _scaled_err(ys, ye) <= (1e-2 if dtype == "bfloat16" else 1e-5)
+    assert _scaled_err(hs, he) <= 1e-5
+    _, h1 = _split_scan(*f, chunk, split=False)
+    assert _scaled_err(h1, he) > 1e-5
 
 
 # ------------------------------------------------------ the blocks alone
