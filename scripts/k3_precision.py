@@ -14,8 +14,19 @@ largest |exact| of its row, as ``chip_smoke.py`` takes it) for
   in fp32 (cuBLAS, TF32 off);
 
 where "exact" is ``ssm_scan_plain`` on the same inputs widened to fp64,
-which it sums in fp64. Run from the repository root on a
-machine with an H100: ``python3 scripts/k3_precision.py``.
+which it sums in fp64.
+
+Then, at ``chip_smoke.py``'s "loga ~ -5" case (x (4, 512, 65), N = 64,
+loga = -5 + 0.1 noise, gate sd 1) over 20 seeds, it prints the same two
+errors beside each element's condition: the magnitude of the terms its
+sum adds (``ssm_scan_plain`` in fp64 on |x|, |b|, |c|) over its scale. At
+a decay of e^-5 a step, an output row is nearly the one product c_t . b_t
+times x_t, so where that product cancels the row's scale falls far below
+the terms the kernel sums. It also prints the error over the terms'
+magnitude, which arithmetic that rounds in fp32 keeps near 2^-24 or below.
+
+Run from the repository root on a machine with an H100:
+``python3 scripts/k3_precision.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +48,39 @@ def scaled_err(a, exact):
     a, exact = a.double(), exact.double()
     scale = exact.abs() + exact.abs().amax(dim=-1, keepdim=True)
     return float(((a - exact).abs() / scale.clamp_min(1e-300)).max())
+
+
+def neg5(card: str) -> None:
+    """chip_smoke.py's "loga ~ -5" case over 20 seeds (see the module's
+    docstring)."""
+    B, S, H, P, N, L = 1, 512, 4, 65, 64, 256
+    for dtype in (torch.bfloat16, torch.float32):
+        for seed in range(20):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+
+            def rnd(*shape):
+                return torch.randn(*shape, generator=gen, device="cuda")
+
+            x = rnd(B, S, H, P).to(dtype)
+            x[..., -1] = 1
+            c = rnd(B, S, H, N).to(dtype)
+            b = rnd(B, S, H, N) / N**0.5 * torch.exp(rnd(B, S, H, 1).clamp(-10, 10))
+            loga = -5 + 0.1 * rnd(B, S, H)
+            f = fold(x, loga, b, c, L)
+            y, _ = ssm_scan_cuda(*f, L)
+            y32, _ = ssm_scan_plain(*f, L)
+            ye, _ = ssm_scan_plain(*(t.double() for t in f), L)
+            terms, _ = ssm_scan_plain(f[0].double().abs(), f[1].double(), f[2].double().abs(),
+                                      f[3].double().abs(), L)
+            scale = ye.abs() + ye.abs().amax(dim=-1, keepdim=True)
+            ye = ye.to(dtype).double()
+            e, e32 = (y.double() - ye).abs(), (y32.double() - ye).abs()
+            at = int((e / scale.clamp_min(1e-300)).argmax())
+            print(f"loga ~ -5 {str(dtype)[6:]} seed {seed}: kernel y {float((e / scale).max()):.3e}, fp32 y "
+                  f"{float((e32 / scale).max()):.3e} of the scale; at the kernel's worst element the terms are "
+                  f"{float(terms.flatten()[at] / scale.flatten()[at]):.1f} x its scale; over the terms: kernel "
+                  f"{float((e / terms.clamp_min(1e-300)).max()):.3e}, fp32 {float((e32 / terms.clamp_min(1e-300)).max()):.3e}; "
+                  f"largest terms / scale {float((terms / scale).max()):.1f} ({card})", flush=True)
 
 
 def main() -> int:
@@ -69,6 +113,7 @@ def main() -> int:
                 print(f"{str(dtype)[6:]} gate sd {sd:g} seed {seed}: kernel y {scaled_err(y, ye):.3e} "
                       f"h {scaled_err(h, he):.3e}; fp32 y {scaled_err(y32, ye):.3e} "
                       f"h {scaled_err(h32, he):.3e} ({card})", flush=True)
+    neg5(card)
     return 0
 
 

@@ -20,7 +20,8 @@ def test_import_port_leaves_jax_out():
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 14, mods\n"
+        "assert len(mods) >= 25, mods\n"
+        "assert {'repro_torch.core.router', 'repro_torch.core.autoscale', 'repro_torch.launch.fleet'} <= set(mods)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
