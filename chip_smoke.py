@@ -20,7 +20,8 @@ toolkit: ``python3 chip_smoke.py``. It
    inputs widened to fp64 (so that it sums in fp64), bf16 and fp32, each
    element against its own scale: the mLSTM prefill shapes (input gates as the model draws them,
    and up to e^10), a sequence that pads, one below a chunk, P = N = 64,
-   loga = 0, loga ~ -5, and chunk 64 vs 256; and checks at the prefill
+   loga = 0, loga ~ -5 (its y against the magnitude of the terms each
+   element sums), and chunk 64 vs 256; and checks at the prefill
    shape that two calls give the same bits, that each row of the call
    equals that row called alone, and that a call replayed from a CUDA
    graph equals the eager call;
@@ -50,7 +51,13 @@ toolkit: ``python3 chip_smoke.py``. It
    device's time without the host), times
    decode steps and prefills to show each kernel's share, and splits an
    xlstm prefill with CUDA events inside the call;
-11. prints one ``{"kernels": [...]}`` line with times and bounds, the card
+11. runs the port's heterogeneous-cluster simulator on the host (no
+   device work): the 37 stored golden hashes, the ``check_views=True``
+   cases (their accumulators equal a brute-force re-sum, by ``==``), and the
+   10^5-request slice of ``fleet_million``, whose event count and per-class
+   p99 must equal ``BENCH_simperf.json``'s; prints its wall time and
+   events/s beside the host CPU's model;
+12. prints one ``{"kernels": [...]}`` line with times and bounds, the card
    line, and last ``{"ok": true, "device": {...}}``. ``--out FILE`` also
    writes every measurement to FILE as JSON.
 
@@ -63,7 +70,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
+import os
+import platform
 import subprocess
 import sys
 import time
@@ -92,18 +102,20 @@ BF16_TOL, FP32_TOL = 3e-2, 1e-4  # kernel vs plain: bf16 as tests/test_kernels.p
 # 5.2e-5 of an element's scale from the exact result at input gates near
 # e^10 (scripts/k3_precision.py), beyond the fp32 limit. The kernel and the
 # reference both sum the cumulative log-decay in fp64, so the limits carry
-# no term for the decay factors' own error. One exception, K3_CUM_TERM.
+# no term for the decay factors' own error. One exception, K3_TERMS_TOL.
 K3_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-# The y of the "loga ~ -5" case alone is held to K3_TOL plus 4 * 2^-24 *
-# max |cum| (3.05e-4 there, cum a chunk's cumulative log-decay): at a decay
+# The y of the "loga ~ -5" case is held against the magnitude of the terms
+# each element sums (ssm_scan_plain in fp64 on |x|, loga, |b|, |c|, as
+# scripts/k3_precision.py takes it), not against its own scale: at a decay
 # of e^-5 a step an output row is nearly the one product c_t . b_t times
-# x_t, and where that product cancels, the row's scale falls up to 1e4
-# times below the terms it sums; fp32 arithmetic errs relative to the
-# terms (the kernel 1.2e-7 to 1.6e-7 of them, the plain version summed in
-# fp32 2.3e-5 to 7.7e-5), so over 20 seeds the kernel reads 3.4e-6 to
-# 6.4e-5 of the scale in fp32 (scripts/k3_precision.py). The term is the
-# limit this case had before; it does not model that cause.
-K3_CUM_TERM = "neg5"
+# x_t, and where that product cancels the row's scale falls up to 1e4
+# times below the terms it sums. fp32 arithmetic errs relative to the
+# terms: over 20 seeds the kernel errs 1.2e-7 to 1.6e-7 of them (the plain
+# version summed in fp32 2.3e-5 to 7.7e-5), and 1e-6 is ~16 units of fp32
+# roundoff; a wrong kernel errs O(1). In bf16 the y is rounded to bf16, and
+# one bf16 unit is at most 2^-7 of |y|, itself at most the terms, so bf16
+# keeps K3_TOL's 1e-2 on this measure.
+K3_TERMS_TOL = {torch.bfloat16: K3_TOL[torch.bfloat16], torch.float32: 1e-6}
 # of the largest |logit|. The two paths round attention outputs to bf16 after
 # summing in another order, and 28 bf16 layers carry that forward: a bf16
 # ulp at |logit| ~ 4 is 1/32. A wrong mask or head mapping moves logits by
@@ -116,6 +128,12 @@ LOGIT_TOL = 5e-2
 # made where a correct kernel sits far below it and a wrong one, which moves
 # logits by O(|logit|), far above.
 XLOGIT_TOL, XLOGIT_LAYERS = 1e-3, 8
+# The simulator's 10^5-request slice of fleet_million (120 replicas) as
+# benchmarks/bench_simperf.py runs it, and what BENCH_simperf.json records
+# for it: the event count and the per-class p99 sojourn, to 0.1 s. The
+# slice, not the 10^6 preset, for the script's time limit (10^6 took 226 to
+# 333 s there).
+SIM_SLICE, SIM_EVENTS, SIM_P99 = 100_000, 202_468, {0: 2255.7, 1: 2242.0, 2: 2239.9}
 
 
 def check(ok: bool, what: str) -> None:
@@ -353,6 +371,78 @@ def serve_fleet(cfg, run, params, reqs, card: str) -> dict:
     return record
 
 
+def host_cpu() -> str:
+    """The host CPU: its model name, or where a sandboxed kernel reports it
+    as unknown, its vendor, family and model numbers and clock; and the
+    number of CPUs this process sees."""
+    info = {}
+    with contextlib.suppress(OSError):
+        for line in Path("/proc/cpuinfo").read_text().split("\n\n")[0].splitlines():
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    name = info.get("model name", "unknown")
+    if name == "unknown" and "model" in info:
+        name = (f"{info.get('vendor_id', '')} family {info.get('cpu family', '?')} model {info['model']}, "
+                f"{info.get('cpu MHz', '?')} MHz").strip()
+    if name == "unknown":
+        name = platform.machine()
+    return f"{name}, {os.cpu_count()} CPUs"
+
+
+def simulate(card: str) -> dict:
+    """The port's heterogeneous-cluster simulator on the host: the 37 stored
+    golden cases (``tests/torch_sim_golden.py``), the ``check_views=True``
+    cases, and the 10^5-request slice of ``fleet_million``. No device work."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_sim_golden as G
+
+    from repro_torch.core import workload as W
+
+    t_phase = time.perf_counter()
+    missed = [c for c in sorted(G.FLEET_CASES) if G.fleet_fingerprint(G.run_fleet_case(W, c)) != G.FLEET_GOLDEN[c]]
+    missed += [c for c in sorted(G.WORKLOAD_CASES)
+               if G.workload_fingerprint(G.run_workload_case(W, c)) != G.WORKLOAD_GOLDEN[c]]
+    n_golden = len(G.FLEET_GOLDEN) + len(G.WORKLOAD_GOLDEN)
+    check(n_golden == 37 and not missed, f"simulator golden hashes missed: {missed}")
+    for case in G.CHECK_VIEWS_CASES:  # each view build asserts its accumulators == a brute-force re-sum
+        res = G.run_check_views_case(W, case)
+        check(res.completed + res.n_rejected == len(res.requests) and res.stranded == 0,
+              f"check_views {case}: every request completed or rejected")
+        if case == "oldest_dispatch/straggler":
+            check(res.n_redispatched > 0 or res.n_hedged > 0, "the straggler case re-dispatches or hedges")
+    golden_s = time.perf_counter() - t_phase
+    spec = W.FLEET_PRESETS["fleet_million"]
+    small = W.FleetSpec(**{**{f: getattr(spec, f) for f in spec.__dataclass_fields__}, "n_requests": SIM_SLICE})
+    gc.collect()
+    gc.disable()  # as bench_simperf.py: the run allocates no cycles, and gen-2 scans would dominate
+    try:
+        t0 = time.perf_counter()
+        res = W.run_fleet(small, seed=0, collect_trace=False, collect_requests=False)
+        wall = time.perf_counter() - t0
+    finally:
+        gc.enable()
+        gc.collect()
+    p99 = {c: res.latency_quantile(0.99, slo_class=c) for c in sorted(res.sojourns_by_class)}
+    check(res.completed + res.n_rejected == SIM_SLICE and res.stranded == 0,
+          f"slice: {res.completed} completed + {res.n_rejected} rejected of {SIM_SLICE}, {res.stranded} stranded")
+    check(res.n_events == SIM_EVENTS, f"slice events {res.n_events} != {SIM_EVENTS}")
+    check(set(p99) == set(SIM_P99) and all(abs(p99[c] - SIM_P99[c]) <= 0.05 for c in SIM_P99),
+          f"slice per-class p99 {p99} != {SIM_P99} to 0.1 s")
+    cpu = host_cpu()
+    out = {"golden": n_golden, "check_views": len(G.CHECK_VIEWS_CASES), "golden_s": golden_s,
+           "slice": {"requests": SIM_SLICE, "events": res.n_events, "wall_s": wall,
+                     "events_per_s": res.n_events / wall, "class_p99_s": p99,
+                     "completed": res.completed, "rejected": res.n_rejected},
+           "host_cpu": cpu, "phase_s": time.perf_counter() - t_phase}
+    print(f"simulator: {n_golden} golden hashes and {len(G.CHECK_VIEWS_CASES)} check_views cases held in "
+          f"{golden_s:.2f} s; fleet_million slice of {SIM_SLICE} requests, 120 replicas: {res.n_events} events in "
+          f"{wall:.2f} s = {res.n_events / wall:.0f} events/s on the host ({cpu}; card {card}), per-class p99 "
+          + ", ".join(f"{c}: {v:.1f} s" for c, v in p99.items())
+          + f"; {res.completed} completed, {res.n_rejected} rejected, none stranded; the phase took "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write every measurement as JSON to this file")
@@ -526,6 +616,11 @@ def main(argv=None) -> int:
         scale = b.abs() + b.abs().amax(dim=-1, keepdim=True)
         return float(((a - b).abs() / scale.clamp_min(1e-30)).max())
 
+    def terms_err(a, b, terms):
+        """Largest |a - b| over the magnitude of the terms each element of b
+        sums (fp64)."""
+        return float(((a.double() - b.double()).abs() / terms.clamp_min(1e-300)).max())
+
     def k3_exact(x, loga, b, c, chunk):
         """K3's reference: the plain version on the same inputs widened to
         fp64, so that it sums in fp64 (summed in fp32 it is itself up to
@@ -557,11 +652,18 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             sy, sh = scaled_err(y, ye), scaled_err(h, he)
             ty, th = K3_TOL[dtype], K3_TOL[torch.float32]
-            if loga == K3_CUM_TERM:
-                ty += 4 * 2**-24 * float(f[1].reshape(-1, 256).cumsum(-1).abs().max())
-            print(f"K3 vs plain {dtype}, {name}: scaled err y {sy:.3e} (tol {ty:.3e}), "
+            held_y = f"scaled err y {sy:.3e} (tol {ty:.3e})"
+            if loga == "neg5":  # y against the terms it sums (K3_TERMS_TOL)
+                terms, _ = ssm_scan_plain(f[0].double().abs(), f[1].double(), f[2].double().abs(),
+                                          f[3].double().abs(), 256)
+                sy_terms, ty = terms_err(y, ye, terms), K3_TERMS_TOL[dtype]
+                held_y = f"y over the terms {sy_terms:.3e} (tol {ty:.3e}), scaled err y {sy:.3e}"
+                sy_held = sy_terms
+            else:
+                sy_held = sy
+            print(f"K3 vs plain {dtype}, {name}: {held_y}, "
                   f"h {sh:.3e} (tol {th:.3e}); max abs err y {err(y, ye):.3e}, h {err(h, he):.3e}")
-            if not (sy <= ty and sh <= th):
+            if not (sy_held <= ty and sh <= th):
                 k3_fail.append(f"{dtype}, {name}")
             worst_abs, worst_scaled = max(worst_abs, err(y, ye), err(h, he)), max(worst_scaled, sy, sh)
         # the chunk length does not change the final state
@@ -889,7 +991,9 @@ def main(argv=None) -> int:
           + ", ".join(f"{k} {v} ms" for k, v in EARLIER_MS.items()) + " (H100 80GB HBM3, 700 W)")
     kernels[2].update(tol={"bf16": K3_TOL[torch.bfloat16], "fp32": K3_TOL[torch.float32], "scaled": True,
                            "reference": "the plain version on the inputs widened to fp64",
-                           "plus": "4 * 2^-24 * max |cum| on the y of the loga ~ -5 case alone"},
+                           "terms": {"bf16": K3_TERMS_TOL[torch.bfloat16], "fp32": K3_TERMS_TOL[torch.float32],
+                                     "on": "the y of the loga ~ -5 case, against the magnitude of the terms "
+                                           "each element sums"}},
                       max_scaled_err=max(k3_scaled.values()),
                       library_note="no single PyTorch call computes a chunked scan")
     record["kernels"] = kernels
@@ -987,13 +1091,18 @@ def main(argv=None) -> int:
               f"{part['ssm_scan']:.2f} ms = {part['ssm_scan'] / total:.1%} ({XL} x kernel alone = "
               f"{XL * kernels[2]['ms'] / total:.1%}); {XS} sLSTM blocks {part['slstm']:.2f} ms = "
               f"{part['slstm'] / total:.1%} ({card})")
+
+    # -- 11. the heterogeneous-cluster simulator, on the host ---------------
+    record["simulator"] = simulate(card)
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(record, indent=1, default=str))
     print(f"tolerances against the plain versions: flash_decode and flash_attention_fwd {BF16_TOL} (bf16), "
           f"{FP32_TOL} (fp32); ssd_scan {K3_TOL[torch.bfloat16]} (bf16), {K3_TOL[torch.float32]} (fp32) "
           "element by element, scaled, against the plain version summed in fp64 (the y of its loga ~ -5 case "
-          "plus 4 * 2^-24 * max |cum|)")
+          f"against the magnitude of the terms it sums: {K3_TERMS_TOL[torch.bfloat16]} (bf16), "
+          f"{K3_TERMS_TOL[torch.float32]} (fp32))")
     print(json.dumps({"kernels": [{k: kern[k] for k in LINE_KEYS if k in kern} for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
