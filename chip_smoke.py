@@ -16,6 +16,11 @@ toolkit: ``python3 chip_smoke.py``. It
 4. holds K2 (flash-attention forward) against its plain version: causal
    prefill, Sq not a multiple of the 64-row q tile, and a window with a
    query offset where a row's first visited 64-key tile is fully masked;
+   then holds K1 and K2 at the head groupings of the dense and MoE archs
+   (G = 1, 6 and 16 q heads per KV head, head_dim 128): K1 at S 2048, over
+   a wrapped ring and at the serves' own shapes (moonshot's ring of 1057 at
+   G 1, mixtral's batch 4 at G 6), its rows at G 16 batch-invariant, K2 causal and, at
+   G 6, with window 4096 at Sq 8192; and times each at its serve's shapes;
 5. holds K3 (the chunked SSD scan) against its plain version on the same
    inputs widened to fp64 (so that it sums in fp64), bf16 and fp32, each
    element against its own scale: the mLSTM prefill shapes (input gates as the model draws them,
@@ -57,9 +62,24 @@ toolkit: ``python3 chip_smoke.py``. It
    10^5-request slice of ``fleet_million``, whose event count and per-class
    p99 must equal ``BENCH_simperf.json``'s; prints its wall time and
    events/s beside the host CPU's model;
-12. prints one ``{"kernels": [...]}`` line with times and bounds, the card
-   line, and last ``{"ok": true, "device": {...}}``. ``--out FILE`` also
-   writes every measurement to FILE as JSON.
+12. (run right after phase 5, while the card holds nothing else) serves
+   moonshot-v1-16b-a3b (48 layers, 64 experts top-6) at full width in bf16:
+   first the kernel path against the plain path with fp32 weights cut to 4
+   layers (logits and every layer's routing); then 16 prompts through one
+   ``ServeLoop`` arena of batch 8, checking the launch identity (K1 = 48 x
+   decode calls, K2 = 48 x prefills) and reporting each prefill's dropped
+   share; the decode step eager and as a CUDA graph beside its byte bound;
+   and the 48-layer bf16 logits of both paths, finite, with the share of
+   routings on which they agree;
+13. serves mixtral-8x22b at full width cut to 4 layers (the only cut): the
+   paths against each other in fp32 on 2 layers past the 4096 window, then
+   4 prompts of 2048-8192 tokens through an arena of batch 4, K2 windowed
+   on every prefill and K1 over the wrapped ring;
+14. prints one ``{"kernels": [...]}`` line with times and bounds (and, for
+   K1 and K2, the launches of each serve path and the times at each head
+   grouping), the seconds of each phase, the card line, and last
+   ``{"ok": true, "device": {...}}``. ``--out FILE`` also writes every
+   measurement to FILE as JSON.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 at once.
@@ -134,6 +154,19 @@ XLOGIT_TOL, XLOGIT_LAYERS = 1e-3, 8
 # slice, not the 10^6 preset, for the script's time limit (10^6 took 226 to
 # 333 s there).
 SIM_SLICE, SIM_EVENTS, SIM_P99 = 100_000, 202_468, {0: 2255.7, 1: 2242.0, 2: 2239.9}
+# Head groupings (q heads per KV head) of the dense and MoE archs, beside
+# qwen3's G = 2 of phases 3 and 4: (G, H, KH, the archs that run it)
+GROUPINGS = ((1, 16, 16, "moonshot-v1-16b-a3b"), (6, 48, 8, "internlm2-20b, mixtral-8x22b"),
+             (16, 128, 8, "llama3-405b"))
+# MoE logits, kernel vs plain path, of the largest |logit|, in fp32 at a cut
+# depth (moonshot 4 layers, mixtral 2). In bf16 a 1e-2 difference in an
+# attention output can flip a near-tie between experts, and the flipped
+# token's FFN output then moves by a large share, so the bf16 full-depth
+# logits are only checked finite and the share of routings the two paths
+# agree on is reported. In fp32 the two paths stay 1e-6 to 1e-5 of the
+# largest |logit| apart, which flips no routing; the limit admits that and
+# refuses an O(|logit|) error.
+MOE_LOGIT_TOL, MOE_LAYERS, MIXTRAL_LAYERS, MIXTRAL_CHECK_LAYERS = 1e-3, 4, 4, 2
 
 
 def check(ok: bool, what: str) -> None:
@@ -149,8 +182,8 @@ EARLIER_MS = {"flash_decode": 1.1745, "flash_attention_fwd": 1.3177, "ssd_scan":
 # the kernels line holds names, strings, this run's measurements and
 # bound_ms; derived rates, constants and quoted times stay in --out's record
 LINE_KEYS = ("name", "route", "source", "replaces", "tpu_kernel", "launches", "launches_per_step",
-             "max_abs_err", "max_scaled_err", "ms", "kernel_ms", "eager_ms", "plain_ms", "library_ms",
-             "library_note", "timing", "bound_ms", "bound_by", "design")
+             "launches_by_path", "max_abs_err", "max_scaled_err", "ms", "kernel_ms", "eager_ms", "plain_ms",
+             "library_ms", "library_note", "timing", "bound_ms", "bound_by", "groupings", "design")
 DESIGN = {
     "flash_decode": "split S into 256-key blocks (fixed, batch-invariant), 16-byte loads, "
                     "8 key rows in flight per lane, fixed-order combine kernel",
@@ -443,6 +476,490 @@ def simulate(card: str) -> dict:
     return out
 
 
+def eager_ms(fn, iters: int = 5) -> float:
+    """Host time of one synchronised call of ``fn`` (after one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e3
+
+
+def leaves(tree):
+    """The tensors of a parameter or cache tree (dicts and lists)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+        return
+    for v in tree.values() if isinstance(tree, dict) else tree:
+        yield from leaves(v)
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def window_pairs(sq: int, window: int) -> int:
+    """(query, key) pairs a causal attention of ``sq`` rows visits."""
+    if not window:
+        return sq * (sq + 1) // 2
+    w = min(window, sq)
+    return w * (w + 1) // 2 + (sq - w) * w
+
+
+def groupings(rnd, gen, card: str) -> dict:
+    """K1 and K2 at the head groupings of the dense and MoE archs
+    (``GROUPINGS``), head_dim 128, against their plain versions in bf16 and
+    fp32 at the tolerances of phases 3 and 4: K1 at S 2048 with phase 3's
+    masks and over a wrapped ring (every key of a 4096-key ring valid), and
+    at the serves' own K1 shapes: moonshot's ring of 1057 at G 1 (4 full
+    256-key splits and a tail of 33, phase 3's masks) and mixtral's batch 4
+    over the wrapped ring at G 6; its rows at G 16 bit-identical to each row
+    alone; K2 causal at Sq 1024 and,
+    at G 6, with window 4096 at Sq 8192 (its plain version in chunks of
+    1024 query rows). Then each timed in bf16 at the shapes its serve gives
+    it, beside its bound and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import SPLIT_KEYS, decode_attention_cuda, decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.models.common import causal_mask
+
+    t_phase = time.perf_counter()
+    D, B, scale = 128, 8, 128**-0.5
+    dev = torch.device("cuda")
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def k2_plain(q, k, v, window):
+        """The plain version over 1024-row query chunks, each against the
+        keys it can see (shift-invariant masks: q_offset = chunk start -
+        first key)."""
+        outs = []
+        for i0 in range(0, q.shape[1], 1024):
+            i1 = min(i0 + 1024, q.shape[1])
+            k0 = max(0, i0 - window + 1) if window else 0
+            outs.append(flash_attention_plain(q[:, i0:i1], k[:, k0:i1], v[:, k0:i1], q_offset=i0 - k0,
+                                              window=window, scale=scale))
+        return torch.cat(outs, dim=1)
+
+    rec = {"k1_err": {}, "k2_err": {}, "k1_cases": [], "k1_batch_invariant": [], "k1_times": [], "k2_times": []}
+    for G, H, KH, archs in GROUPINGS:
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            worst = 0.0
+            # (S, every key valid, batch); the serves' shapes beside the others
+            cases = [(2048, False, B), (4096, True, B)] + {1: [(1057, False, 8)], 6: [(4096, True, 4)]}.get(G, [])
+            for S, ring, b in cases:
+                q = rnd(b, H, D, dtype=dtype)
+                k, v = rnd(b, S, KH, D, dtype=dtype), rnd(b, S, KH, D, dtype=dtype)
+                if ring:
+                    valid = torch.ones(b, S, dtype=torch.int32, device=dev)
+                else:
+                    valid = (torch.rand(b, S, generator=gen, device=dev) > 0.3).to(torch.int32)
+                    valid[1] = 1
+                    valid[2] = 0  # all-invalid row
+                    valid[3] = 0
+                    valid[3, (S - 1) // 32 * 32:] = 1
+                    valid[5] = 0
+                    valid[5, (S - 1) // SPLIT_KEYS * SPLIT_KEYS:] = 1
+                got = decode_attention_cuda(q, k, v, valid, scale=scale)
+                exp = decode_attention_plain(q, k, v, valid, scale=scale)
+                torch.cuda.synchronize()
+                rows = list(range(b)) if ring else [0, 1, 3, 4, 5, 6, 7]
+                if not ring:
+                    check(float(got[0][2].abs().max()) == 0.0, f"K1 G {G}: the all-invalid row is exactly zero")
+                worst = max(worst, err(got[0][rows], exp[0][rows]))
+                rec["k1_cases"].append(f"G={G}, B={b}, S={S}, {'wrapped ring' if ring else 'masks'}, {dtype}")
+                if G == 16 and not ring:
+                    alone = [decode_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1], valid[i:i + 1], scale=scale)
+                             for i in range(b)]
+                    check(all(torch.equal(x[i:i + 1], y) for i in range(b) for x, y in zip(got, alone[i])),
+                          f"K1 G 16 batch-8 rows bit-identical to batch-1 calls ({dtype})")
+                    rec["k1_batch_invariant"].append(f"G=16, B=8, {dtype}, S={S}")
+            check(worst < tol, f"K1 vs plain at G {G} ({H}/{KH}) {dtype}: {worst} >= {tol}")
+            rec["k1_err"][f"G{G} {dtype}"] = worst
+            worst = 0.0
+            for Sq, window in ((1024, 0),) + (((8192, 4096),) if G == 6 else ()):
+                q = rnd(1, Sq, H, D, dtype=dtype)
+                k, v = rnd(1, Sq, KH, D, dtype=dtype), rnd(1, Sq, KH, D, dtype=dtype)
+                got = flash_attention_cuda(q, k, v, window=window, scale=scale)
+                worst = max(worst, err(got, k2_plain(q, k, v, window)))
+            check(worst < tol, f"K2 vs plain at G {G} ({H}/{KH}) {dtype}: {worst} >= {tol}")
+            rec["k2_err"][f"G{G} {dtype}"] = worst
+            print(f"K1, K2 vs plain at G {G} ({H} q heads / {KH} KV heads: {archs}), {dtype}: max abs err K1 "
+                  f"{rec['k1_err'][f'G{G} {dtype}']:.3e}, K2 {worst:.3e} (tol {tol})")
+    print(f"K1 cases held against the plain version: {rec['k1_cases']}")
+    print(f"K1 batch invariance at G 16: {rec['k1_batch_invariant']}")
+
+    # times at the shapes each grouping's serve gives the kernels (bf16)
+    bf = torch.bfloat16
+    k1_shapes = ((1, 8, 16, 16, 1057, "moonshot decode, 8 slots, ring of 1057"),
+                 (6, 4, 48, 8, 4096, "mixtral decode, 4 slots, wrapped 4096 ring"),
+                 (16, 8, 128, 8, 2048, "llama3-405b decode, 8 slots at 2048"))
+    for G, b, H, KH, S, what in k1_shapes:
+        q, k, v = rnd(b, H, D, dtype=bf), rnd(b, S, KH, D, dtype=bf), rnd(b, S, KH, D, dtype=bf)
+        if G == 6:
+            valid = torch.ones(b, S, dtype=torch.int32, device=dev)
+        else:
+            ends = torch.randint(128, S + 1, (b, 1), generator=gen, device=dev)
+            valid = (torch.arange(S, device=dev)[None] < ends).to(torch.int32)
+        mask = valid.bool()[:, None, None, :]
+        nbytes = (q.numel() + k.numel() + v.numel()) * 2 + valid.numel() * 4 + b * H * D * 4
+        t = {"G": G, "shape": f"q ({b},{H},{D}), k/v ({b},{S},{KH},{D}) bf16", "what": what,
+             "ms": graph_ms(lambda: decode_attention_cuda(q, k, v, valid, scale=scale)),
+             "plain_ms": timed_ms(lambda: decode_attention_plain(q, k, v, valid, scale=scale)),
+             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                 q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True)),
+             "bound_ms": max(nbytes / HBM_BYTES_PER_S, 4 * b * H * S * D / BF16_FLOPS) * 1e3,
+             "bound_by": "bytes", "bytes": nbytes}
+        rec["k1_times"].append(t)
+    k2_shapes = ((1, 1024, 16, 16, 0, "moonshot prefill of 1024"),
+                 (6, 8192, 48, 8, 4096, "mixtral prefill of 8192, window 4096"),
+                 (16, 1024, 128, 8, 0, "llama3-405b prefill of 1024"))
+    for G, Sq, H, KH, window, what in k2_shapes:
+        q, k, v = rnd(1, Sq, H, D, dtype=bf), rnd(1, Sq, KH, D, dtype=bf), rnd(1, Sq, KH, D, dtype=bf)
+        flops = 4 * H * D * window_pairs(Sq, window)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window:
+            # SDPA takes no window: an explicit mask, and K, V repeated to the
+            # q heads (its memory-efficient path takes no GQA)
+            mask = causal_mask(Sq, Sq, 0, window, dev)
+            kr, vr = ks.repeat_interleave(G, dim=1), vs.repeat_interleave(G, dim=1)
+            lib = lambda: F.scaled_dot_product_attention(qs, kr, vr, attn_mask=mask)  # noqa: E731
+            note = "SDPA with a (Sq, Sk) bool mask, K and V repeated to the 48 q heads"
+        else:
+            lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)  # noqa: E731
+            note = "SDPA, GQA, causal"
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        t = {"G": G, "shape": f"q ({1},{Sq},{H},{D}), k/v (1,{Sq},{KH},{D}) bf16, window {window}", "what": what,
+             "ms": graph_ms(lambda: flash_attention_cuda(q, k, v, window=window, scale=scale), iters=5),
+             "plain_ms": timed_ms(lambda: k2_plain(q, k, v, window), iters=3),
+             "library_ms": graph_ms(lib, iters=5), "library_note": note,
+             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "flops": flops}
+        rec["k2_times"].append(t)
+        del q, k, v, qs, ks, vs, lib
+        if window:
+            del kr, vr, mask
+    for name, times in (("K1", rec["k1_times"]), ("K2", rec["k2_times"])):
+        for t in times:
+            print(f"{name} at G {t['G']} ({t['what']}; {t['shape']}): {t['ms']:.5f} ms device (graph replay), bound "
+                  f"{t['bound_ms']:.5f} ms by {t['bound_by']}, plain {t['plain_ms']:.4f} ms, SDPA "
+                  f"{t['library_ms']:.5f} ms ({card})")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"the groupings phase took {rec['phase_s']:.1f} s")
+    free_card()
+    return rec
+
+
+def paths_agree(cfg, params, prompt, max_len, steps: int = 4) -> dict:
+    """Prefill ``prompt`` and decode ``steps`` tokens on the kernel path (K2,
+    K1) and on the plain path (chunked attention, einsum decode), both fed
+    the kernel path's greedy tokens. Returns the largest |kernel - plain| logit, the largest
+    |plain| logit, whether every logit is finite and of shape (B, 1,
+    vocab), and, for a MoE stack, how the two paths routed: the share of
+    (token, slot) choices they agree on and whether all agree, over how
+    many MoE calls."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    runs = {"kernel": RunConfig(remat="none", attention_impl="pallas", decode_attention_impl="kernel"),
+            "plain": RunConfig(remat="none", attention_impl="chunked", decode_attention_impl="einsum")}
+    routes = {name: [] for name in runs}
+    route = moe.route
+
+    def spied(name):
+        def call(*args, **kwargs):
+            r = route(*args, **kwargs)
+            routes[name].append(r.top_i)
+            return r
+        return mock.patch.object(moe, "route", call)
+
+    logits, caches = {}, {}
+    for name, run in runs.items():
+        with spied(name):
+            logits[name], caches[name] = M.prefill(cfg, run, params, prompt, max_len)
+    worst, top, sound = 0.0, 0.0, True
+    for step in range(steps + 1):
+        a, b = logits["kernel"].float(), logits["plain"].float()
+        worst, top = max(worst, float((a - b).abs().max())), max(top, float(b.abs().max()))
+        sound &= all(t.shape == (prompt.shape[0], 1, cfg.vocab_size) and bool(torch.isfinite(t).all()) for t in (a, b))
+        if step == steps:
+            break
+        tok = torch.argmax(a[:, -1], dim=-1, keepdim=True)
+        for name, run in runs.items():
+            with spied(name):
+                logits[name], _ = M.decode_step(cfg, run, params, caches[name], tok)
+    torch.cuda.synchronize()
+    pairs = list(zip(routes["kernel"], routes["plain"]))
+    same = sum(int((x == y).sum()) for x, y in pairs)
+    total = sum(x.numel() for x, _ in pairs)
+    out = {"max_abs_diff": worst, "max_abs_logit": top, "sound": sound, "moe_calls": len(pairs)}
+    if pairs:
+        out.update(routing_agree=same / total, routing_identical=same == total)
+    return out
+
+
+def moe_serve(cfg, params, lens, max_len: int, batch: int, card: str, spy_kernels: bool = False) -> dict:
+    """Serve ``lens`` SyntheticCorpus prompts, 32 new tokens each, greedy,
+    admit_all, through one ``ServeLoop`` arena on the kernel path, the launch
+    counts at 0 just before. Checks completion and the exact launch
+    identity (K1 = layers x decode calls, K2 = layers x prefills); records
+    each prefill's ``moe_drop_frac`` (mean and max over its layers), and
+    with ``spy_kernels`` the window of every K2 call and whether K1 read a
+    wrapped ring (every key of a row valid at full ring capacity). The spies
+    only keep references inside the timed window (each K1 mask is a fresh
+    tensor per call); they are reduced after it."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.dataset import SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, ServeLoop
+    from repro_torch.models import moe
+
+    run = RunConfig(remat="none", attention_impl="pallas", decode_attention_impl="kernel")
+    corpus = SyntheticCorpus(cfg.vocab_size, max(lens), seed=0)
+    reqs = [Request(i, corpus.grain_tokens(i, 1)[0][:n], 32) for i, n in enumerate(lens)]
+    loop = ServeLoop(cfg, run, params, batch=batch, max_len=max_len, mode="arena", device="cuda")
+    loop.warm(min(lens))
+    drops, windows, wrapped = [], [], []
+    moe_apply, flash, decode = moe.moe_apply, ops.flash_attention, ops.decode_attention
+
+    def spy_moe(c, p, x, inference=False):
+        y, aux = moe_apply(c, p, x, inference=inference)
+        if x.shape[1] > 1:
+            drops.append(aux["moe_drop_frac"])
+        return y, aux
+
+    def spy_flash(*args, **kwargs):
+        windows.append(kwargs.get("window", 0))
+        return flash(*args, **kwargs)
+
+    def spy_decode(q, k, v, valid, **kwargs):
+        wrapped.append(valid)
+        return decode(q, k, v, valid, **kwargs)
+
+    patches = [mock.patch.object(moe, "moe_apply", spy_moe)]
+    if spy_kernels:
+        patches += [mock.patch.object(ops, "flash_attention", spy_flash),
+                    mock.patch.object(ops, "decode_attention", spy_decode)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        loop.start(reqs, t0=time.perf_counter())
+        while loop.tick() != "done":
+            pass
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    stats = loop.stats()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    check(stats["completed"] == len(lens) and all(len(r.tokens) == 32 for r in reqs),
+          f"{cfg.name}: {stats['completed']}/{len(lens)} requests with 32 tokens")
+    check(stats["decode_calls"] < stats["decode_steps"], f"{cfg.name}: the arena batches decode steps")
+    check(stats["prefill_calls"] == len(lens) and launches["flash_attention"] == L * stats["prefill_calls"],
+          f"{cfg.name}: K2 launches {launches['flash_attention']} != {L} x {stats['prefill_calls']} prefills")
+    check(launches["decode_attention"] == L * stats["decode_calls"],
+          f"{cfg.name}: K1 launches {launches['decode_attention']} != {L} x {stats['decode_calls']} decode calls")
+    check(len(drops) == L * len(lens), f"{cfg.name}: {len(drops)} MoE prefill calls != {L} x {len(lens)}")
+    per = torch.stack(drops).view(len(lens), L).float()
+    out = {**stats, "launches": launches, "peak_bytes": peak, "prompt_lens": list(lens), "layers": L,
+           "k1_per_decode_call": launches["decode_attention"] / stats["decode_calls"],
+           "k2_per_prefill": launches["flash_attention"] / stats["prefill_calls"],
+           "prefill_drop_frac_mean": per.mean(1).tolist(), "prefill_drop_frac_max": per.amax(1).tolist()}
+    if spy_kernels:
+        out["k2_windows"] = sorted(set(windows))
+        out["k1_wrapped_calls"] = sum(bool(m.bool().all(dim=1).any()) for m in wrapped)
+    print(f"serve {cfg.name} arena batch={batch} max_len={max_len}, {len(lens)} requests (prompts {sorted(set(lens))}, "
+          f"gen 32) on {card}: {stats['tokens_per_s']:.1f} tok/s, mean TTFT {stats['mean_ttft_s'] * 1e3:.1f} ms, "
+          f"{stats['decode_calls']} decode calls, {stats['prefill_calls']} prefills, occupancy "
+          f"{stats['slot_occupancy']:.3f}, wall {stats['wall_s']:.2f} s, peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches}")
+    print(f"{cfg.name} moe_drop_frac per prefill (mean over {L} layers): "
+          + ", ".join(f"{n}: {d:.4f}" for n, d in zip(lens, out["prefill_drop_frac_mean"])))
+    return out
+
+
+def serve_moonshot(card: str) -> dict:
+    """moonshot-v1-16b-a3b at full width, bf16: (a) the kernel path against
+    the plain path with the weights in fp32, cut to the first MOE_LAYERS
+    layers, logits within MOE_LOGIT_TOL and identical routing; (b) the
+    48-layer model (random weights from a seeded generator on the card, its
+    parameter count equal to ``count_params_exact``) serving 16 prompts
+    through one ``ServeLoop`` arena; (c) the decode step at batch 8, eager
+    and replayed as a CUDA graph, beside its byte bound; (d) the full-depth
+    bf16 logits of both paths finite, and how often they route alike."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config("moonshot-v1-16b-a3b")
+    L = cfg.num_layers
+    rec = {}
+    # (a) fp32, MOE_LAYERS layers: two 512-token prompts (one dispatch group each)
+    cut = dataclasses.replace(cfg, num_layers=MOE_LAYERS, compute_dtype="float32")
+    params = M.init_model(cut, torch.Generator(device=dev).manual_seed(0), dtype=torch.float32)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 512), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    agree = paths_agree(cut, params, prompt, 520)
+    agree["tol"] = MOE_LOGIT_TOL * max(1.0, agree["max_abs_logit"])
+    agree["weights_gb"] = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+    print(f"moonshot fp32, first {MOE_LAYERS} layers ({agree['weights_gb']:.1f} GB of weights), kernel vs plain "
+          f"(prefill 2x512 + 4 decode steps): max abs diff {agree['max_abs_diff']:.4e}, largest |logit| "
+          f"{agree['max_abs_logit']:.3f}, tol {agree['tol']:.4e}; routing identical: {agree['routing_identical']} "
+          f"over {agree['moe_calls']} MoE calls")
+    check(agree["sound"] and agree["max_abs_diff"] <= agree["tol"],
+          f"moonshot fp32 {MOE_LAYERS}-layer logits kernel vs plain: {agree}")
+    check(agree["routing_identical"], f"moonshot fp32 {MOE_LAYERS} layers: the two paths route alike: {agree}")
+    rec["fp32_cut"] = agree
+    del params
+    free_card()
+
+    # (b) the full-width serve
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    rec["params"], rec["init_s"] = n_params, time.perf_counter() - t0
+    check(n_params == M.count_params_exact(cfg), f"moonshot: {n_params} params != {M.count_params_exact(cfg)}")
+    print(f"init moonshot-v1-16b-a3b ({n_params} params = count_params_exact, "
+          f"{M.count_active_params_exact(cfg)} active per token, bf16, "
+          f"{n_params * 2 / 1e9:.1f} GB): {rec['init_s']:.1f} s")
+    lens = [128, 256, 384, 512] * 3 + [1024] * 4
+    rec["serve"] = moe_serve(cfg, params, lens, 1057, 8, card)
+
+    # (c) the decode step at batch 8 (a fresh arena at position 1024)
+    run = RunConfig(remat="none", attention_impl="pallas", decode_attention_impl="kernel")
+    arena = M.init_cache(cfg, 8, 1057, dev)
+    arena["pos"].fill_(1024)
+    toks = torch.randint(0, cfg.vocab_size, (8, 1), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    act = torch.ones(8, dtype=torch.bool, device=dev)
+    experts_hit = []
+    route = moe.route
+
+    def spy(*args, **kwargs):
+        r = route(*args, **kwargs)
+        experts_hit.append(int(r.top_i.unique().numel()))
+        return r
+
+    with mock.patch.object(moe, "route", spy):
+        M.decode_step(cfg, run, params, arena, toks, active=act)
+    arena["pos"].fill_(1024)
+    step_ms = eager_ms(lambda: M.decode_step(cfg, run, params, arena, toks, active=act))
+    arena["pos"].fill_(1024)
+    step_graph_ms = graph_ms(lambda: M.decode_step(cfg, run, params, arena, toks, active=act), iters=4)
+    # the step's byte bound, from the tensors it reads: every weight but the
+    # embedding (8 rows of it) and the experts, the experts (all of them, as
+    # the batched product over E reads them, or only those this step routed
+    # to), the whole KV arena, and the logits it writes
+    e_bytes = [sum(blk["moe"][w].numel() * blk["moe"][w].element_size() for w in ("gate", "up", "down"))
+               for blk in params["layers"]]
+    other = sum(t.numel() * t.element_size() for t in leaves(params)) - sum(e_bytes) \
+        - params["embed"].numel() * params["embed"].element_size() + 8 * cfg.d_model * 2
+    kv = sum(arena[k].numel() * arena[k].element_size() for k in ("k", "v"))
+    logits_out = 8 * cfg.vocab_size * 2
+    routed = sum(b * n / cfg.num_experts for b, n in zip(e_bytes, experts_hit))
+    rec["step"] = {"eager_ms": step_ms, "graph_ms": step_graph_ms, "host_wait": 1 - step_graph_ms / step_ms,
+                   "bytes_all_experts": other + sum(e_bytes) + kv + logits_out,
+                   "bytes_routed_experts": other + routed + kv + logits_out,
+                   "expert_bytes": sum(e_bytes), "other_weight_bytes": other, "kv_bytes": kv,
+                   "experts_routed_per_layer_mean": sum(experts_hit) / len(experts_hit)}
+    rec["step"]["bound_ms_all_experts"] = rec["step"]["bytes_all_experts"] / HBM_BYTES_PER_S * 1e3
+    rec["step"]["bound_ms_routed_experts"] = rec["step"]["bytes_routed_experts"] / HBM_BYTES_PER_S * 1e3
+    st = rec["step"]
+    print(f"moonshot decode step (8 slots at 1024, ring 1057): eager {step_ms:.2f} ms, CUDA graph "
+          f"{step_graph_ms:.3f} ms, the eager step waits for the host {st['host_wait']:.1%}; byte bound "
+          f"{st['bound_ms_all_experts']:.3f} ms reading every expert ({st['expert_bytes'] / 1e9:.2f} GB experts, "
+          f"{st['other_weight_bytes'] / 1e9:.2f} GB other weights, {kv / 1e9:.2f} GB KV), "
+          f"{st['bound_ms_routed_experts']:.3f} ms reading only the routed ones "
+          f"({st['experts_routed_per_layer_mean']:.1f} of {cfg.num_experts} per layer) ({card})")
+    del arena
+
+    # (d) full depth, bf16: finite logits, and how often the paths route alike
+    prompt = torch.randint(0, cfg.vocab_size, (2, 512), generator=torch.Generator(device=dev).manual_seed(3),
+                           device=dev)
+    full = paths_agree(cfg, params, prompt, 520)
+    check(full["sound"], f"moonshot bf16 {L}-layer logits finite and of shape (2, 1, vocab): {full}")
+    rec["bf16_full"] = full
+    print(f"moonshot bf16, all {L} layers, kernel vs plain (prefill 2x512 + 4 decode steps, not checked): max abs "
+          f"diff {full['max_abs_diff']:.4f} at largest |logit| {full['max_abs_logit']:.3f}; the paths agree on "
+          f"{full['routing_agree']:.4%} of (token, slot) routings over {full['moe_calls']} MoE calls")
+    del params
+    free_card()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"the moonshot phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def serve_mixtral_cut(card: str) -> dict:
+    """mixtral-8x22b at full width, cut to MIXTRAL_LAYERS layers (the only
+    cut): (a) the kernel path against the plain path with the weights in
+    fp32, cut to MIXTRAL_CHECK_LAYERS layers, on a 6144-token prompt (past
+    the 4096 window, so the prefill wraps the ring), logits within
+    MOE_LOGIT_TOL and identical routing; (b) bf16, one ``ServeLoop`` arena
+    of batch 4 over prompts of 2048, 4096, 6144 and 8192 (multiples of the
+    2048 dispatch group, before, at and past the window): K2 runs with
+    window 4096 on every prefill and K1 over the wrapped ring."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    full = get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(full, num_layers=MIXTRAL_LAYERS)
+    rec = {"cut": f"num_layers {full.num_layers} -> {MIXTRAL_LAYERS}; every width as published"}
+    print(f"mixtral-8x22b cut: {rec['cut']} (d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token}, d_ff {cfg.ffn_dim}, window {cfg.sliding_window}, "
+          f"group {cfg.moe_group_size})")
+    cut = dataclasses.replace(cfg, num_layers=MIXTRAL_CHECK_LAYERS, compute_dtype="float32")
+    params = M.init_model(cut, torch.Generator(device=dev).manual_seed(0), dtype=torch.float32)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 6144), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    agree = paths_agree(cut, params, prompt, 6144 + 8)
+    agree["tol"] = MOE_LOGIT_TOL * max(1.0, agree["max_abs_logit"])
+    agree["weights_gb"] = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+    print(f"mixtral fp32, {MIXTRAL_CHECK_LAYERS} layers ({agree['weights_gb']:.1f} GB of weights), kernel vs plain "
+          f"(prefill 1x6144 past the window + 4 decode steps over the wrapped ring): max abs diff "
+          f"{agree['max_abs_diff']:.4e}, largest |logit| {agree['max_abs_logit']:.3f}, tol {agree['tol']:.4e}; "
+          f"routing identical: {agree['routing_identical']} over {agree['moe_calls']} MoE calls")
+    check(agree["sound"] and agree["max_abs_diff"] <= agree["tol"],
+          f"mixtral fp32 {MIXTRAL_CHECK_LAYERS}-layer logits kernel vs plain: {agree}")
+    check(agree["routing_identical"], f"mixtral fp32: the two paths route alike: {agree}")
+    rec["fp32_cut"] = agree
+    del params
+    free_card()
+
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rec["params"], rec["init_s"] = sum(t.numel() for t in leaves(params)), time.perf_counter() - t0
+    check(rec["params"] == M.count_params_exact(cfg), "mixtral cut: parameter count")
+    print(f"init mixtral-8x22b cut to {MIXTRAL_LAYERS} layers ({rec['params']} params, bf16, "
+          f"{rec['params'] * 2 / 1e9:.1f} GB): {rec['init_s']:.1f} s")
+    rec["serve"] = moe_serve(cfg, params, [2048, 4096, 6144, 8192], 8225, 4, card, spy_kernels=True)
+    check(rec["serve"]["k2_windows"] == [cfg.sliding_window],
+          f"mixtral: every K2 call with window {cfg.sliding_window}: {rec['serve']['k2_windows']}")
+    check(rec["serve"]["k1_wrapped_calls"] > 0, "mixtral: K1 ran over a wrapped ring")
+    print(f"mixtral: K2 windows {rec['serve']['k2_windows']}; {rec['serve']['k1_wrapped_calls']} K1 calls read a "
+          f"wrapped ring ({card})")
+    del params
+    free_card()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"the mixtral phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write every measurement as JSON to this file")
@@ -472,13 +989,23 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "phase_s": {}}
+    t_start = t_lap = time.perf_counter()
+
+    def lap(name):
+        """Record and print the seconds since the last lap."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        record["phase_s"][name] = now - t_lap
+        print(f"phase {name}: {now - t_lap:.1f} s", flush=True)
+        t_lap = now
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     report = _build.build()
     record["build_s"] = time.perf_counter() - t0
     print(f"build: {record['build_s']:.2f} s for {len(report)} kernels (parallel nvcc)")
+    lap("2. build")
     for name, r in report.items():
         print(f"build {name}: {r['seconds']:.2f} s")
         for line in r["log"].splitlines():
@@ -570,6 +1097,7 @@ def main(argv=None) -> int:
     print(f"K1 batch invariance: every row of a batch-8 or batch-2 call bit-identical to the row alone "
           f"({k1_invariant})")
     record["k1_batch_invariant"] = k1_invariant
+    lap("3. K1 vs plain")
 
     # -- 4. K2 vs plain ---------------------------------------------------
     k2_err = {}
@@ -589,6 +1117,12 @@ def main(argv=None) -> int:
         check(worst < tol, f"K2 vs plain {dtype}: {worst} >= {tol}")
         k2_err[str(dtype)] = worst
         print(f"K2 vs plain {dtype}: max abs err {worst:.3e} (tol {tol})")
+
+    lap("4. K2 vs plain")
+    # the head groupings of the dense and MoE archs (K1 and K2)
+    grp = groupings(rnd, gen, card)
+    record["groupings"] = grp
+    lap("3-4. K1, K2 at G = 1, 6, 16")
 
     # -- 5. K3 vs plain ---------------------------------------------------
     def k3_inputs(B, S, H, P, N, dtype, loga="gate", b_dtype=torch.float32, gate_sd=1.0):
@@ -707,6 +1241,14 @@ def main(argv=None) -> int:
     check(all(all(v.values()) for v in k3_bits.values()), f"K3 bits: {k3_bits}")
     record["k3_bits"] = k3_bits
 
+    lap("5. K3 vs plain")
+
+    # -- 12, 13. the MoE serves, first: each needs the card to itself ----
+    record["moonshot"] = serve_moonshot(card)
+    lap("12. moonshot-v1-16b-a3b")
+    record["mixtral"] = serve_mixtral_cut(card)
+    lap("13. mixtral-8x22b cut")
+
     # -- 6. serve qwen3-1.7b at full width ---------------------------------
     cfg = get_config("qwen3-1.7b")
     t0 = time.perf_counter()
@@ -743,34 +1285,24 @@ def main(argv=None) -> int:
           f"{stats['decode_calls']} decode calls, occupancy {stats['slot_occupancy']:.3f}, "
           f"wall {stats['wall_s']:.2f} s, peak memory {peak / 2**30:.2f} GiB; launches {launches}")
 
+    lap("6. qwen3-1.7b serve")
+
     # -- 7. the heterogeneous fleet on qwen3-1.7b ---------------------------
     record["fleet"] = serve_fleet(cfg, kernel_run, params, reqs, card)
+    lap("7. fleet")
 
     # -- 8. logits: kernel path vs plain path -------------------------------
-    plain_run = RunConfig(remat="none", attention_impl="chunked", decode_attention_impl="einsum")
     prompt = torch.as_tensor(np.stack([corpus.grain_tokens(100 + i, 1)[0][:300] for i in range(2)]),
                              dtype=torch.long, device=dev)
-    worst, top = 0.0, 0.0
-    caches = {}
-    logits = {}
-    for name, run in (("kernel", kernel_run), ("plain", plain_run)):
-        logits[name], caches[name] = M.prefill(cfg, run, params, prompt, 512)
-    feed = []
-    for step in range(5):
-        a, b = logits["kernel"].float(), logits["plain"].float()
-        worst, top = max(worst, float((a - b).abs().max())), max(top, float(b.abs().max()))
-        if step == 4:
-            break
-        tok = torch.argmax(a[:, -1], dim=-1, keepdim=True)  # both paths get the same tokens
-        feed.append(tok)
-        for name, run in (("kernel", kernel_run), ("plain", plain_run)):
-            logits[name], _ = M.decode_step(cfg, run, params, caches[name], tok)
-    torch.cuda.synchronize()
-    check(np.isfinite(worst) and worst <= LOGIT_TOL * max(1.0, top),
+    agree = paths_agree(cfg, params, prompt, 512)
+    worst, top = agree["max_abs_diff"], agree["max_abs_logit"]
+    check(agree["sound"] and worst <= LOGIT_TOL * max(1.0, top),
           f"logits kernel vs plain: {worst} > {LOGIT_TOL} x {top}")
     record["logits"] = {"max_abs_diff": worst, "max_abs_logit": top, "tol": LOGIT_TOL * max(1.0, top)}
     print(f"logits kernel vs plain (prefill 2x300 + 4 decode steps): max abs diff {worst:.4f}, "
           f"largest |logit| {top:.3f}, tol {LOGIT_TOL * max(1.0, top):.4f}")
+
+    lap("8. qwen3 logits")
 
     # -- 9. serve xlstm-1.3b at full width ---------------------------------
     xcfg = get_config("xlstm-1.3b")
@@ -806,6 +1338,8 @@ def main(argv=None) -> int:
           f"{xstats['tokens_per_s']:.1f} tok/s, mean TTFT {xstats['mean_ttft_s'] * 1e3:.1f} ms, "
           f"{xstats['decode_calls']} decode calls, occupancy {xstats['slot_occupancy']:.3f}, "
           f"wall {xstats['wall_s']:.2f} s, peak memory {xpeak / 2**30:.2f} GiB; launches {xlaunches}")
+
+    lap("9. xlstm-1.3b serve")
 
     # -- 10. xlstm: the first mLSTM block; logits; a parked row -------------
     def plain_scan(x, loga, b, c, chunk=256):
@@ -904,6 +1438,8 @@ def main(argv=None) -> int:
     print("xlstm parked row: mLSTM and sLSTM state and position bit-identical")
     del x32params, full32, cache
 
+    lap("10. xlstm checks")
+
     # -- 11. times and bounds at the main path's shapes (bf16) --------------
     S = 2048
     q1, k1, v1 = rnd(B, H, D, dtype=torch.bfloat16), rnd(B, S, KH, D, dtype=torch.bfloat16), rnd(B, S, KH, D, dtype=torch.bfloat16)
@@ -965,6 +1501,24 @@ def main(argv=None) -> int:
         })
         kernels[-1]["kernel_ms"] = kernels[-1]["ms"]
         check(launches_n > 0, f"{name} was not launched on the main path")
+    # every serve path's own run, its counts set to 0 just before it; and the
+    # head groupings of the dense and MoE archs, timed at their serves' shapes
+    moon, mix = record["moonshot"]["serve"]["launches"], record["mixtral"]["serve"]["launches"]
+    for kern, key in ((kernels[0], "decode_attention"), (kernels[1], "flash_attention")):
+        kern["launches_by_path"] = {"qwen3-1.7b serve": launches[key], "moonshot-v1-16b-a3b serve": moon[key],
+                                    f"mixtral-8x22b ({record['mixtral']['serve']['layers']} layers) serve": mix[key]}
+        check(all(n > 0 for n in kern["launches_by_path"].values()), f"{kern['name']} launched on every path")
+        times = grp["k1_times" if key == "decode_attention" else "k2_times"]
+        kern["groupings"] = [{k: t[k] for k in ("G", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                             for t in times]
+        kern["max_abs_err"] = max(kern["max_abs_err"],
+                                  *grp["k1_err" if key == "decode_attention" else "k2_err"].values())
+    ms, xs = record["moonshot"]["serve"], record["mixtral"]["serve"]
+    kernels[0]["launches_per_step"] += (f"; {ms['k1_per_decode_call']:g} per decode step (moonshot-v1-16b-a3b), "
+                                        f"{xs['k1_per_decode_call']:g} (mixtral cut)")
+    kernels[1]["launches_per_step"] += (f"; {ms['k2_per_prefill']:g} per prefill (moonshot-v1-16b-a3b), "
+                                        f"{xs['k2_per_prefill']:g} (mixtral cut)")
+    kernels[2]["launches_by_path"] = {"xlstm-1.3b serve": xlaunches["ssm_scan"]}
     kernels[0]["achieved_tb_per_s"] = k1_bytes / kernels[0]["ms"] / 1e9
     kernels[1]["achieved_tflop_per_s"] = k2_flops / kernels[1]["ms"] / 1e9
     # K2 and SDPA where blocks are plenty (B 8, Sq = Sk = 2048): the kernel's
@@ -1014,17 +1568,8 @@ def main(argv=None) -> int:
     act = torch.ones(8, dtype=torch.bool, device=dev)
     prompt = torch.as_tensor(corpus.grain_tokens(200, 1)[:, :1024], dtype=torch.long, device=dev)
 
-    def host_ms(fn, iters=5):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) / iters * 1e3
-
-    step_ms = host_ms(lambda: M.decode_step(cfg, kernel_run, params, arena, toks, active=act))
-    prefill_ms = host_ms(lambda: M.prefill(cfg, kernel_run, params, prompt, 2048))
+    step_ms = eager_ms(lambda: M.decode_step(cfg, kernel_run, params, arena, toks, active=act))
+    prefill_ms = eager_ms(lambda: M.prefill(cfg, kernel_run, params, prompt, 2048))
     # the same step and prefill replayed as CUDA graphs: their device time
     # with no host in the way, so 1 - graph / eager is the share of the
     # eager call in which the device waits for the host
@@ -1040,7 +1585,7 @@ def main(argv=None) -> int:
     # for the host too, which is the time the prefill spends there.
     xarena = M.init_cache(xcfg, 8, 2048, dev)
     xprompt = torch.as_tensor(xcorpus.grain_tokens(200, 1)[:, :1024], dtype=torch.long, device=dev)
-    x_step_ms = host_ms(lambda: M.decode_step(xcfg, kernel_run, xparams, xarena, toks, active=act))
+    x_step_ms = eager_ms(lambda: M.decode_step(xcfg, kernel_run, xparams, xarena, toks, active=act))
 
     def split_prefill():
         spans = {"ssm_scan": [], "slstm": []}
@@ -1092,8 +1637,13 @@ def main(argv=None) -> int:
               f"{XL * kernels[2]['ms'] / total:.1%}); {XS} sLSTM blocks {part['slstm']:.2f} ms = "
               f"{part['slstm'] / total:.1%} ({card})")
 
+    lap("11. times and bounds")
+
     # -- 11. the heterogeneous-cluster simulator, on the host ---------------
     record["simulator"] = simulate(card)
+    lap("11. simulator")
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in record["phase_s"].items())
+          + f"; total {time.perf_counter() - t_start:.1f} s")
 
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)

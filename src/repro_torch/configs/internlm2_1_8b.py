@@ -1,0 +1,19 @@
+"""internlm2-1.8b — dense GQA decoder. [arXiv:2403.17297; hf]
+
+24L d_model=2048 16H (GQA kv=8) d_ff=8192 vocab=92544.
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    num_layers=24,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=8,
+    d_ff=8192,
+    vocab_size=92_544,
+    rope_theta=1_000_000.0,
+    source="arXiv:2403.17297; hf",
+)

@@ -24,6 +24,19 @@ step, not logits. The run is eager: one Python call per step.
 call, the single-request reference) remain for the comparisons the tests
 and claim 14 make.
 
+**Mixture-of-experts stacks** (moonshot, mixtral) serve exactly in the
+arena too. At decode (S = 1) every row is its own dispatch group, with a
+capacity of one slot per expert and ``k`` distinct experts per token, so
+nothing is dropped and a parked slot takes no router capacity from an
+active one: its token and cache change no active row's logits
+(``tests/test_torch_moe.py`` checks this in the port and in the JAX
+package). A prompt's prefill routes alone, in groups of
+``moe_group_size`` tokens at the eval capacity factor, so its drops depend
+on it alone. The JAX package's note that parked slots consume router
+capacity holds only for a prefill that batches several prompts into one
+group, which neither serve runs. A prompt longer than the group must be a
+multiple of it, as in the JAX package.
+
 On the card the kernel path is the default (``main()`` selects
 ``attention_impl="pallas"``, K2, for prefill and
 ``decode_attention_impl="kernel"``, K1, for decode; the xLSTM stack's
@@ -35,6 +48,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b-smoke \
       --requests 16 --batch 4 --prompt-len 32 --gen 16 --mode arena
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b-smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b-smoke --device cpu
 """
 
 from __future__ import annotations

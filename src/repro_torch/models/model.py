@@ -1,12 +1,13 @@
 """Model assembly: embedding → layer loop → LM head.
 
 Port of ``repro/models/model.py`` for stacks of attention blocks with a
-dense SwiGLU FFN (the qwen3 family) and for the xLSTM stack (mLSTM and
-sLSTM blocks, no FFN). The JAX package's ``lax.scan`` over block periods
-becomes a Python loop over layers; parameters are a dict with a ``layers``
-list, one dict per layer, in the JAX package's weight layouts (``wq (D, H,
-hd)``, ``wo (H, hd, D)``). MoE, Mamba blocks and modality frontends raise
-"not ported".
+dense SwiGLU FFN (qwen3, internlm2, llama3) or a mixture-of-experts FFN
+(moonshot, mixtral: ``models/moe.py``), and for the xLSTM stack (mLSTM
+and sLSTM blocks, no FFN). The JAX package's ``lax.scan`` over block
+periods becomes a Python loop over layers; parameters are a dict with a
+``layers`` list, one dict per layer, in the JAX package's weight layouts
+(``wq (D, H, hd)``, ``wo (H, hd, D)``, experts ``(E, D, F)``). Mamba
+blocks and modality frontends raise "not ported".
 
 The decode cache holds what the architecture has, each kind stacked over
 its own layers with batch on dim 1, so a serving slot is one
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.models.common import (
     ParamDef,
@@ -56,9 +58,8 @@ PORTED_KINDS = ("attn", "mlstm", "slstm")
 def _check_ported(cfg: ModelConfig) -> None:
     for i in range(cfg.num_layers):
         kind = cfg.layer_kind(i)
-        if kind not in PORTED_KINDS or cfg.layer_is_moe(i):
-            what = "moe" if cfg.layer_is_moe(i) else kind
-            raise NotImplementedError(f"{cfg.name}: {what} blocks are not ported to repro_torch yet")
+        if kind not in PORTED_KINDS:
+            raise NotImplementedError(f"{cfg.name}: {kind} blocks are not ported to repro_torch yet")
     if cfg.frontend:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported to repro_torch yet")
 
@@ -93,7 +94,10 @@ def _block_defs(cfg: ModelConfig, i: int) -> dict:
     if kind == "slstm":
         return {"slstm": ssm.slstm_defs(cfg)}
     d = {"norm": norm_def(cfg.d_model), "attn": attn.attn_defs(cfg)}
-    if cfg.d_ff:
+    if cfg.layer_is_moe(i):
+        d["ffn_norm"] = norm_def(cfg.d_model)
+        d["moe"] = moe_lib.moe_defs(cfg)
+    elif cfg.d_ff:
         d["ffn_norm"] = norm_def(cfg.d_model)
         d["ffn"] = mlp_defs(cfg.d_model, cfg.d_ff)
     return d
@@ -122,6 +126,16 @@ def count_params_exact(cfg: ModelConfig) -> int:
     return param_count(model_defs(cfg))
 
 
+def count_active_params_exact(cfg: ModelConfig) -> int:
+    """Per-token active params (MoE experts scaled to experts_per_token)."""
+    total = count_params_exact(cfg)
+    for blk in model_defs(cfg)["layers"]:
+        if "moe" in blk:
+            experts = param_count([blk["moe"][w] for w in ("gate", "up", "down")])
+            total -= experts - experts * cfg.experts_per_token // cfg.num_experts
+    return total
+
+
 # ---------------------------------------------------------------------------
 # Blocks, embedding, head
 # ---------------------------------------------------------------------------
@@ -131,11 +145,17 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def _ffn(cfg, blk, h):
+def _ffn(cfg, blk, h, inference: bool):
+    """The block's FFN, dense or MoE, on the residual ``h``. Returns ``(h,
+    aux)``: the MoE metrics, or ``{}`` where the block has no MoE."""
+    if "moe" in blk:
+        hn = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
+        y, aux = moe_lib.moe_apply(cfg, blk["moe"], hn, inference=inference)
+        return h + y, aux
     if "ffn" in blk:
         hn = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
         h = h + mlp_apply(blk["ffn"], hn, _compute_dtype(cfg))
-    return h
+    return h, {}
 
 
 def _embed(cfg, params, tokens):
@@ -155,24 +175,37 @@ def _head(cfg, params, h):
 
 
 def _block_full(cfg, run, blk, kind, h, positions):
-    """One block over the whole sequence (no cache)."""
+    """One block over the whole sequence (no cache), training capacity.
+    Returns ``(h, aux)``."""
     if kind == "mlstm":
-        return h + ssm.mlstm_apply_full(cfg, blk["mlstm"], h, chunk=run.ssd_chunk)
+        return h + ssm.mlstm_apply_full(cfg, blk["mlstm"], h, chunk=run.ssd_chunk), {}
     if kind == "slstm":
-        return h + ssm.slstm_apply_full(cfg, blk["slstm"], h)
+        return h + ssm.slstm_apply_full(cfg, blk["slstm"], h), {}
     hn = rms_norm(h, blk["norm"], cfg.norm_eps)
     h = h + attn.attn_apply_full(cfg, run, blk["attn"], hn, positions)
-    return _ffn(cfg, blk, h)
+    return _ffn(cfg, blk, h, inference=False)
 
 
 def forward(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor):
-    """Training/eval forward. tokens: (B, S). Returns (logits, aux)."""
+    """Training/eval forward. tokens: (B, S). Returns (logits, aux).
+
+    ``aux`` holds the MoE metrics as the JAX package reports them: summed
+    over the blocks of each period, then averaged over the periods; zeros
+    for a stack without MoE."""
     h = _embed(cfg, params, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    for blk, (kind, _) in zip(params["layers"], _kind_index(cfg)):
-        h = _block_full(cfg, run, blk, kind, h, positions)
-    zero = torch.zeros((), device=h.device)
-    return _head(cfg, params, h), {"moe_aux": zero, "moe_drop_frac": zero}
+    periods = [{} for _ in range(cfg.num_periods)]
+    for i, (blk, (kind, _)) in enumerate(zip(params["layers"], _kind_index(cfg))):
+        h, aux = _block_full(cfg, run, blk, kind, h, positions)
+        sums = periods[i // cfg.period]
+        for key, v in aux.items():
+            sums[key] = sums[key] + v if key in sums else v
+    if periods[0]:
+        aux = {key: torch.stack([p[key] for p in periods]).mean() for key in periods[0]}
+    else:
+        zero = torch.zeros((), device=h.device)
+        aux = {"moe_aux": zero, "moe_drop_frac": zero}
+    return _head(cfg, params, h), aux
 
 
 def prefill(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor, max_len: int):
@@ -196,7 +229,7 @@ def prefill(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor
             hn = rms_norm(h, blk["norm"], cfg.norm_eps)
             y, (k, v) = attn.attn_apply_full(cfg, run, blk["attn"], hn, positions, return_kv=True)
             attn.attn_fill_cache(cfg, {"k": cache["k"][j], "v": cache["v"][j]}, k, v)
-            h = _ffn(cfg, blk, h + y)
+            h, _ = _ffn(cfg, blk, h + y, inference=True)
     return _head(cfg, params, h[:, -1:]), cache
 
 
@@ -225,8 +258,9 @@ def decode_step(
     recurrent state (their logits are garbage the caller ignores). The
     JAX package's ``decode_step`` advances the mLSTM and sLSTM state of
     inactive rows too (ROADMAP C5); the port keeps them, so a parked
-    session resumes from its own state. The cache is updated in place and
-    returned.
+    session resumes from its own state. Under MoE every row is its own
+    dispatch group at S = 1 (capacity one slot per expert), so rows never
+    compete for experts. The cache is updated in place and returned.
     """
     h = _embed(cfg, params, tokens)
     pos = cache["pos"]
@@ -245,7 +279,7 @@ def decode_step(
             hn = rms_norm(h, blk["norm"], cfg.norm_eps)
             layer_cache = {"k": cache["k"][j], "v": cache["v"][j]}
             h = h + attn.attn_apply_step(cfg, run, blk["attn"], layer_cache, hn, pos, active)
-            h = _ffn(cfg, blk, h)
+            h, _ = _ffn(cfg, blk, h, inference=True)
     logits = _head(cfg, params, h)
     if active is None:
         pos += 1
@@ -259,7 +293,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     the parts the architecture has; ``max_len`` sizes the KV part only."""
     _check_ported(cfg)
     counts = _kind_counts(cfg)
-    cache ={"pos": torch.zeros((batch,), dtype=torch.long, device=device)}
+    cache = {"pos": torch.zeros((batch,), dtype=torch.long, device=device)}
     if "attn" in counts:
         cap = attn.cache_capacity(cfg, max_len)
         shape = (counts["attn"], batch, cap, cfg.num_kv_heads, cfg.head_dim_)

@@ -1,11 +1,15 @@
-"""The port's dense model against the JAX package on bridged weights.
+"""The port's attention stacks against the JAX package on bridged weights.
 
 The JAX param tree from ``M.init_model(PRNGKey(0))`` goes to the port as
 numpy arrays (``repro_torch.bridge``); token inputs come from one numpy
-generator. Compute is fp32 and logits must agree to 1e-4.
+generator. Compute is fp32 and logits must agree to 1e-4. qwen3 is held
+in detail; each of the five other dense and MoE archs (internlm2-1.8b,
+internlm2-20b, llama3-405b, moonshot-v1-16b-a3b, mixtral-8x22b), reduced,
+through forward, prefill and decode on every attention knob.
 """
 
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -45,11 +49,14 @@ def _close(a, b, tol=TOL):
     assert err < tol, err
 
 
-def _cache_close(pcache, jcache, pcfg, rows=None):
+def _cache_close(pcache, jcache, pcfg, rows=None, scaled=False):
+    """K, V and positions against the reference's; ``scaled`` holds K and
+    V to TOL of the largest |value| of the reference's (see _scaled_close)."""
     jc = bridge.cache_from_jax(jax.tree.map(np.asarray, jcache), pcfg)
     sel = slice(None) if rows is None else rows
-    _close(pcache["k"][:, sel], jc["k"][:, sel])
-    _close(pcache["v"][:, sel], jc["v"][:, sel])
+    for key in ("k", "v"):
+        ref = jc[key][:, sel]
+        _close(pcache[key][:, sel], ref, TOL * max(1.0, float(ref.abs().max())) if scaled else TOL)
     assert torch.equal(pcache["pos"][sel], jc["pos"][sel])
 
 
@@ -185,9 +192,124 @@ def test_bridged_shapes_match_init_and_init_is_seeded():
 
 
 def test_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("mixtral-8x22b")
-    moe = dataclasses.replace(get_config("qwen3-1.7b").reduced(), num_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.init_model(moe, torch.Generator())
+    """The Mamba-2 hybrid and the frontends are not ported: their archs,
+    a Mamba-block config and a frontend config raise. A MoE FFN builds."""
+    for arch in ("jamba-1.5-large-398b", "llava-next-34b", "musicgen-medium"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(arch)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(arch + "-smoke")
+    base = get_config("qwen3-1.7b").reduced()
+    mamba = dataclasses.replace(base, ssm_kind="mamba2", attn_every=2)
+    with pytest.raises(NotImplementedError, match="mamba blocks are not ported"):
+        M.init_model(mamba, torch.Generator())
+    with pytest.raises(NotImplementedError, match="frontend is not ported"):
+        M.init_model(dataclasses.replace(base, frontend="vision_patches"), torch.Generator())
+    moe = dataclasses.replace(base, num_experts=4, experts_per_token=2, moe_d_ff=32)
+    layer = M.init_model(moe, torch.Generator())["layers"][0]
+    assert set(layer) == {"norm", "attn", "ffn_norm", "moe"}
+    assert layer["moe"]["gate"].shape == (4, moe.d_model, 32)
     assert isinstance(get_config("qwen3-1.7b-smoke"), ModelConfig)
+
+
+# ------------------------------------------- the five dense and MoE archs
+
+NEW_ARCHS = ("internlm2-1.8b", "internlm2-20b", "llama3-405b", "moonshot-v1-16b-a3b", "mixtral-8x22b")
+KNOBS = {  # port's RunConfig, the JAX package's
+    "xla": (RunConfig(attention_impl="xla"), JaxRunConfig(attention_impl="xla", remat="none")),
+    "chunked": (RunConfig(attention_impl="chunked", attention_chunk=8),
+                JaxRunConfig(attention_impl="xla", remat="none")),
+    "pallas": (RunConfig(attention_impl="pallas", decode_attention_impl="kernel"),
+               JaxRunConfig(attention_impl="pallas_interpret", decode_attention_impl="kernel_interpret",
+                            remat="none")),
+}
+
+
+# The five archs have no qk-norm: their K and V grow to |20-25| by the second
+# layer and the unnormed q.k scores are peaked, so an fp32 rounding of a
+# score is amplified by the softmax into what follows (up to 3e-5 of the
+# scale of K, V and the logits against JAX here). Their caches and logits
+# are held to TOL of the reference's largest |value| (at least 1).
+
+
+def _scaled_close(a, b):
+    _close(a, b, TOL * max(1.0, float(np.abs(np.asarray(b, np.float32)).max())))
+
+
+def _arch_cfgs(arch):
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(vocab_size=SMALL["vocab_size"]), compute_dtype="float32")
+    pcfg = dataclasses.replace(get_config(arch).reduced(vocab_size=SMALL["vocab_size"]), compute_dtype="float32")
+    return jcfg, pcfg
+
+
+def test_new_archs_registered():
+    for arch in NEW_ARCHS:
+        cfg, smoke = get_config(arch), get_config(arch + "-smoke")
+        assert cfg.name == arch and smoke.name == arch + "-smoke"
+        assert smoke.num_layers == 2 * cfg.period and smoke.num_experts == min(cfg.num_experts, 4)
+
+
+@pytest.mark.parametrize("knob", list(KNOBS))
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_matches_jax(arch, knob):
+    """Forward (logits and MoE aux), prefill (logits and cache), then four
+    decode steps under an active mask, so the rows' positions drift apart.
+    S = 24 runs past mixtral-smoke's window of 16 and is one MoE group.
+    Under the window a parked row is left out once parked: the reference
+    writes its last ring slot (ROADMAP C4)."""
+    jcfg, pcfg = _arch_cfgs(arch)
+    jp, pp = _params(jcfg, pcfg)
+    run_p, run_j = KNOBS[knob]
+    rng = np.random.default_rng(5)
+    jt, pt = _tokens(rng, 3, 24)
+    jl, jaux = jax.jit(partial(JM.forward, jcfg, run_j))(jp, jt)
+    pl, paux = M.forward(pcfg, run_p, pp, pt)
+    _scaled_close(pl, jl)
+    # the same drops; the jitted reference may round the means otherwise
+    _close(paux["moe_drop_frac"], jaux["moe_drop_frac"], 1e-6)
+    _close(paux["moe_aux"], jaux["moe_aux"], 1e-5)
+    if pcfg.num_experts:
+        assert float(paux["moe_aux"]) > 0.0
+    jl, jc = jax.jit(partial(JM.prefill, jcfg, run_j, max_len=32))(jp, jt)
+    pl, pc = M.prefill(pcfg, run_p, pp, pt, 32)
+    _scaled_close(pl, jl)
+    _cache_close(pc, jc, pcfg, scaled=True)
+    step = jax.jit(lambda p, c, t, a: JM.decode_step(jcfg, run_j, p, c, t, None, active=a))
+    ever_parked = np.zeros(3, bool)
+    for act in ([1, 1, 1], [1, 0, 1], [0, 1, 1], [1, 1, 1]):
+        act = np.array(act, bool)
+        ever_parked |= ~act
+        jt, pt = _tokens(rng, 3, 1)
+        jl, jc = step(jp, jc, jt, jnp.asarray(act))
+        pl, pc = M.decode_step(pcfg, run_p, pp, pc, pt, active=torch.from_numpy(act))
+        rows = act & ~ever_parked if pcfg.sliding_window else act
+        _scaled_close(pl[rows], np.asarray(jl)[rows])
+        _cache_close(pc, jc, pcfg, rows=np.flatnonzero(~ever_parked) if pcfg.sliding_window else None,
+                     scaled=True)
+    assert pc["pos"].tolist() == [27, 27, 28]
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_full_width_counts_match_reference(arch):
+    """Total and active parameters at full width, counted from shapes
+    (nothing allocated), equal the JAX package's counts."""
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    assert M.count_params_exact(cfg) == JM.count_params_exact(jcfg)
+    assert M.count_active_params_exact(cfg) == JM.count_active_params_exact(jcfg)
+    if cfg.num_experts:
+        assert M.count_active_params_exact(cfg) < M.count_params_exact(cfg) / 2
+    else:
+        assert M.count_active_params_exact(cfg) == M.count_params_exact(cfg)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_bridged_shapes_match_init(arch):
+    """The bridge carries every subtree (the ``moe`` one included) in the
+    shapes ``init_model`` builds."""
+    jcfg, pcfg = _arch_cfgs(arch)
+    _, pp = _params(jcfg, pcfg)
+    own = M.init_model(pcfg, torch.Generator().manual_seed(0))
+    shapes = lambda t: jax.tree_util.tree_flatten_with_path(jax.tree.map(lambda x: tuple(x.shape), t))[0]  # noqa: E731
+    assert [(jax.tree_util.keystr(k), v) for k, v in shapes(pp)] == \
+        [(jax.tree_util.keystr(k), v) for k, v in shapes(own)]
+    assert ("moe" in pp["layers"][0]) == bool(pcfg.num_experts)

@@ -333,3 +333,29 @@ def test_arena_streams_bit_identical_to_serial_on_card():
     assert stats["completed"] == 7
     assert [r.tokens for r in arena] == [r.tokens for r in serial]
 
+
+@pytest.mark.gpu
+def test_moe_kernel_path_matches_plain_on_card():
+    """A small MoE stack (moonshot-smoke widths at head_dim 128, 64 experts
+    top-6) in fp32 on the card: the kernel path (K2 prefill, K1 decode)
+    against the plain path through ``chip_smoke.paths_agree``, logits within
+    1e-3 of the largest |logit| and the same experts chosen at every layer
+    and step. The routing's tie rule holds on the card too: equal
+    probabilities go to the lower index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from chip_smoke import paths_agree
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(
+        get_config("moonshot-v1-16b-a3b").reduced(head_dim=128, num_experts=64, experts_per_token=6),
+        compute_dtype="float32")
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator(device="cuda").manual_seed(1),
+                           device="cuda")
+    agree = paths_agree(cfg, params, prompt, 72)
+    assert agree["sound"]
+    assert agree["max_abs_diff"] <= 1e-3 * max(1.0, agree["max_abs_logit"])
+    assert agree["moe_calls"] == 5 * cfg.num_layers and agree["routing_identical"]
+    tied = torch.tensor([[0.1, 0.3, 0.3, 0.2, 0.3, 0.1]], device="cuda").log()
+    assert moe._top_k_routing(tied, 3)[2].tolist() == [[1, 2, 4]]
