@@ -11,16 +11,22 @@ toolkit: ``python3 chip_smoke.py``. It
    fp32: random validity, a ring full at capacity, a row valid only in the
    last 32 keys, one valid only in the last split, an all-invalid row,
    two-shard partials, at S = 2048 and 2050 and at the split boundaries
-   (below one split, one short of it, at it, one past it); and checks that
-   each row of a batch-8 call is bit-identical to that row called alone;
+   (below one split, one short of it, at it, one past it), each output
+   within an absolute limit and each element within ``ATTN_SCALED_TOL`` of
+   its own scale (as K2 below); and checks that each row of a batch-8 call
+   is bit-identical to that row called alone;
 4. holds K2 (flash-attention forward) against its plain version: causal
    prefill, Sq not a multiple of the 64-row q tile, and a window with a
    query offset where a row's first visited 64-key tile is fully masked;
-   then holds K1 and K2 at the head groupings of the dense and MoE archs
-   (G = 1, 6 and 16 q heads per KV head, head_dim 128): K1 at S 2048, over
-   a wrapped ring and at the serves' own shapes (moonshot's ring of 1057 at
-   G 1, mixtral's batch 4 at G 6), its rows at G 16 batch-invariant, K2 causal and, at
-   G 6, with window 4096 at Sq 8192; and times each at its serve's shapes;
+   then holds K1 and K2 at the head groupings of the dense, MoE, hybrid and
+   frontend archs (G = 1, 6, 16, 8 and 7 q heads per KV head at head_dim
+   128, G = 1 at head_dim 64): K1 at S 2048, over a wrapped ring and at the
+   serves' own shapes (moonshot's ring of 1057 at G 1, mixtral's batch 4 at
+   G 6, jamba's ring of 4129 at G 8, llava's batch 4 over 2304 at G 7,
+   musicgen's ring of 1057 at head_dim 64), its rows at G 16
+   batch-invariant, K2 causal at Sq 1024 and at each serve's longest
+   prefill (at G 6 with window 4096 at Sq 8192); and times each at its
+   serve's shapes;
 5. holds K3 (the chunked SSD scan) against its plain version on the same
    inputs widened to fp64 (so that it sums in fp64), bf16 and fp32, each
    element against its own scale: the mLSTM prefill shapes (input gates as the model draws them,
@@ -29,7 +35,12 @@ toolkit: ``python3 chip_smoke.py``. It
    element sums), and chunk 64 vs 256; and checks at the prefill
    shape that two calls give the same bits, that each row of the call
    equals that row called alone, and that a call replayed from a CUDA
-   graph equals the eager call;
+   graph equals the eager call; then K3 at jamba's Mamba layout (128 heads
+   of P = 128, N = 64, c shared by every head) over prompts of 1000 and
+   4096 tokens the same way, its rows batch-invariant and a graph replay
+   equal to the eager call, and times it at the 4096-token prefill, alone
+   and with the fold that lays out its inputs (``ops.ssm_scan``), beside a
+   byte bound that counts c once per token;
 6. serves 16 requests on qwen3-1.7b at full width (random weights from a
    seeded generator) through ``ServeLoop`` in arena mode and checks that
    every prefill went through K2 and every decode step through K1;
@@ -71,15 +82,37 @@ toolkit: ``python3 chip_smoke.py``. It
    share; the decode step eager and as a CUDA graph beside its byte bound;
    and the 48-layer bf16 logits of both paths, finite, with the share of
    routings on which they agree;
-13. serves mixtral-8x22b at full width cut to 4 layers (the only cut): the
-   paths against each other in fp32 on 2 layers past the 4096 window, then
-   4 prompts of 2048-8192 tokens through an arena of batch 4, K2 windowed
-   on every prefill and K1 over the wrapped ring;
-14. prints one ``{"kernels": [...]}`` line with times and bounds (and, for
-   K1 and K2, the launches of each serve path and the times at each head
-   grouping), the seconds of each phase, the card line, and last
-   ``{"ok": true, "device": {...}}``. ``--out FILE`` also writes every
-   measurement to FILE as JSON.
+13. serves mixtral-8x22b at full width cut to 4 layers: the paths against
+   each other in fp32 on 2 layers past the 4096 window, then 4 prompts of
+   2048-8192 tokens through an arena of batch 4, K2 windowed on every
+   prefill and K1 over the wrapped ring;
+14. serves jamba-1.5-large-398b at full width cut to 4 layers (Mamba +
+   dense FFN, Mamba + MoE, Mamba + dense FFN, attention + MoE): one 8-layer
+   period is 45.1e9 parameters, ~90 GB in bf16, which no single H100
+   holds, so the cut keeps the first three Mamba layers and the period's
+   attention layer (22,974,884,480 parameters, 45.9 GB). The paths against
+   each other in fp32 on the first 2 layers (K3 against its plain version
+   summed in fp64; logits and routing); 8 prompts of 256-4096 tokens
+   through an arena of batch 8 with K3 = 3 x prefills, K2 = prefills, K1 =
+   decode calls, each prefill's dropped share; a parked row's position,
+   KV and four Mamba tensors left bit for bit; the decode step eager and
+   as a CUDA graph beside its byte bound;
+15. serves musicgen-medium at full width (48 layers, MHA, head_dim 64): the
+   paths against each other in fp32 on 4 layers after 256 prefix
+   features; 16 prompts of 128-1024 through an arena of batch 8; a prefill
+   of 256 seeded audio-frame features before 1024 tokens (every K2 call at
+   Sq 1280) and 4 decode steps from it;
+16. serves llava-next-34b at full width (60 layers, G = 7; 68.8 GB in
+   bf16) the same way through an arena of batch 4 and a ring of 2304, 8
+   prompts of 256-2048, its prefix 256 vision-patch features. Phases 12-16
+   run right after phase 5 while the card holds nothing else, each freeing
+   its weights; the depth cuts are mixtral's and jamba's, every width is
+   the published one;
+17. prints one ``{"kernels": [...]}`` line with times and bounds (and the
+   launches of each serve path; for K1 and K2 the times at each head
+   grouping, for K3 at the Mamba shape), the seconds of each phase, the
+   card line, and last ``{"ok": true, "device": {...}}``. ``--out FILE``
+   also writes every measurement to FILE as JSON.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 at once.
@@ -106,10 +139,26 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+# the frontends' prefix length, as the JAX package's workloads give it
+from repro_torch.models.model import DEFAULT_PREFIX_LEN as PREFIX_LEN  # noqa: E402
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense tensor-core bf16
 TF32_FLOPS = 495e12  # dense tensor-core TF32
 BF16_TOL, FP32_TOL = 3e-2, 1e-4  # kernel vs plain: bf16 as tests/test_kernels.py; fp32 sums in another order
+# K1 and K2 vs plain besides, each element against its own scale (|plain| +
+# the largest |plain| of its row of head_dim values, scaled_err), keyed by
+# the output's dtype. With random q, k, v over thousands of keys a typical
+# |out| is sqrt(e / keys), 0.02 to 0.06, so the absolute limits above are
+# about one typical value: on an H100, K1 ignoring the last 32 of 4129 keys
+# errs 2.3e-2 absolute, under 3e-2, and 0.23 of the scale
+# (scripts/attn_fault_check.py plants such faults in a copy). bf16 (K2's
+# output): one bf16 unit is at most 2^-7 of an element, so at most 2^-8
+# (3.9e-3) of its scale, and 1e-2 admits two. fp32 (K1's output in either
+# input type, K2's fp32 kernel): sums over up to 8192 keys in another order,
+# which a correct kernel keeps within 3e-6 of the scale on an H100; 1e-4
+# admits thirty times that.
+ATTN_SCALED_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # K3 and the mLSTM block vs plain, each element against its own scale (see
 # scaled_err in main: the mLSTM input gate reaches e^10, so one global scale
 # would hide the error of every element near the few large ones). bf16: the
@@ -122,17 +171,19 @@ BF16_TOL, FP32_TOL = 3e-2, 1e-4  # kernel vs plain: bf16 as tests/test_kernels.p
 # 5.2e-5 of an element's scale from the exact result at input gates near
 # e^10 (scripts/k3_precision.py), beyond the fp32 limit. The kernel and the
 # reference both sum the cumulative log-decay in fp64, so the limits carry
-# no term for the decay factors' own error. One exception, K3_TERMS_TOL.
+# no term for the decay factors' own error. Exceptions: K3_TERMS_TOL.
 K3_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-# The y of the "loga ~ -5" case is held against the magnitude of the terms
-# each element sums (ssm_scan_plain in fp64 on |x|, loga, |b|, |c|, as
+# The y of the "loga ~ -5" case, and of the Mamba-shape cases (decays down
+# to e^-11 a step), is held against the magnitude of the terms each element
+# sums (ssm_scan_plain in fp64 on |x|, loga, |b|, |c|, as
 # scripts/k3_precision.py takes it), not against its own scale: at a decay
 # of e^-5 a step an output row is nearly the one product c_t . b_t times
 # x_t, and where that product cancels the row's scale falls up to 1e4
 # times below the terms it sums. fp32 arithmetic errs relative to the
 # terms: over 20 seeds the kernel errs 1.2e-7 to 1.6e-7 of them (the plain
-# version summed in fp32 2.3e-5 to 7.7e-5), and 1e-6 is ~16 units of fp32
-# roundoff; a wrong kernel errs O(1). In bf16 the y is rounded to bf16, and
+# version summed in fp32 2.3e-5 to 7.7e-5), at the Mamba shape over 10
+# seeds 1.4e-7 to 1.7e-7 (4.2e-6 to 2.1e-5 of the row's own scale), and
+# 1e-6 is ~16 units of fp32 roundoff; a wrong kernel errs O(1). In bf16 the y is rounded to bf16, and
 # one bf16 unit is at most 2^-7 of |y|, itself at most the terms, so bf16
 # keeps K3_TOL's 1e-2 on this measure.
 K3_TERMS_TOL = {torch.bfloat16: K3_TOL[torch.bfloat16], torch.float32: 1e-6}
@@ -154,19 +205,61 @@ XLOGIT_TOL, XLOGIT_LAYERS = 1e-3, 8
 # slice, not the 10^6 preset, for the script's time limit (10^6 took 226 to
 # 333 s there).
 SIM_SLICE, SIM_EVENTS, SIM_P99 = 100_000, 202_468, {0: 2255.7, 1: 2242.0, 2: 2239.9}
-# Head groupings (q heads per KV head) of the dense and MoE archs, beside
-# qwen3's G = 2 of phases 3 and 4: (G, H, KH, the archs that run it)
-GROUPINGS = ((1, 16, 16, "moonshot-v1-16b-a3b"), (6, 48, 8, "internlm2-20b, mixtral-8x22b"),
-             (16, 128, 8, "llama3-405b"))
-# MoE logits, kernel vs plain path, of the largest |logit|, in fp32 at a cut
-# depth (moonshot 4 layers, mixtral 2). In bf16 a 1e-2 difference in an
+# jamba-1.5-large-398b at full width cut to JAMBA_LAYERS layers (Mamba +
+# dense FFN, Mamba + MoE, Mamba + dense FFN, attention + MoE: 22,974,884,480
+# parameters, 45.9 GB in bf16; tests/test_torch_mamba.py holds the count
+# against the JAX package's per-layer definitions): one 8-layer period is
+# 45.1e9 parameters, ~90 GB in bf16, which no single H100 holds. Its serve:
+# two prompts each of 256, 1000 (not a multiple of K3's 256-step chunk),
+# 2048 and 4096 (one and two MoE groups of 2048) through an arena of batch
+# 8, a ring for 4096 + 32 new tokens + 1. Its fp32 check, kernel vs plain
+# path, runs the first JAMBA_CHECK_LAYERS layers (two Mamba layers, one
+# with MoE: 48.6 GB of fp32 weights).
+JAMBA_LAYERS, JAMBA_CHECK_LAYERS, JAMBA_CUT_PARAMS = 4, 2, 22_974_884_480
+JAMBA_LENS, JAMBA_MAX_LEN = (256, 1000, 2048, 4096) * 2, 4129
+# musicgen-medium at full width (48 layers, 24 MHA heads of 64): 16 prompts
+# of 128-1024 through an arena of batch 8, a ring for 1024 + 32 + 1
+MUSICGEN_LENS, MUSICGEN_MAX_LEN = (128, 256, 384, 512, 640, 768, 896, 1024) * 2, 1057
+# llava-next-34b at full width: 34.4e9 parameters, 68.8 GB in bf16, leave
+# ~11 GB of the card, so an arena of batch 4 and a ring of 2304 (2.3 GB of
+# KV over 60 layers) for prompts up to 2048 + 32 new tokens
+LLAVA_LENS, LLAVA_BATCH, LLAVA_MAX_LEN = (256, 512, 1024, 2048) * 2, 4, 2304
+# the frontends' prefix prefill: PREFIX_LEN seeded features, then FRONTEND_PROMPT
+# tokens; the fp32 kernel-vs-plain check on the first FRONTEND_CHECK_LAYERS
+FRONTEND_PROMPT, FRONTEND_CHECK_LAYERS = 1024, 4
+# K3 at jamba's Mamba layout: H = d_inner / 128 heads of P = 128 (the
+# block's head width), N = d_state, over one prompt of 1000 tokens (not a
+# multiple of the 256-step chunk) and one of 4096 (its serve's longest)
+K3_MAMBA_SHAPE, K3_MAMBA_SEQS = (128, 128, 64), (1000, 4096)
+# Head groupings (q heads per KV head) and head widths of the dense, MoE,
+# hybrid and frontend archs, beside qwen3's G = 2 of phases 3 and 4: (G, H,
+# KH, head_dim, the archs that run it, K1 at the shape its serve gives it
+# (batch, ring, every key valid, what), K2 at its serve's longest prefill
+# (Sq, window, what)). llama3-405b and internlm2-20b are not served.
+GROUPINGS = (
+    (1, 16, 16, 128, "moonshot-v1-16b-a3b", (8, 1057, False, "moonshot decode, 8 slots, ring of 1057"),
+     (1024, 0, "moonshot prefill of 1024")),
+    (6, 48, 8, 128, "internlm2-20b, mixtral-8x22b", (4, 4096, True, "mixtral decode, 4 slots, wrapped 4096 ring"),
+     (8192, 4096, "mixtral prefill of 8192, window 4096")),
+    (16, 128, 8, 128, "llama3-405b", (8, 2048, False, "llama3-405b decode, 8 slots at 2048"),
+     (1024, 0, "llama3-405b prefill of 1024")),
+    (8, 64, 8, 128, "jamba-1.5-large-398b", (8, JAMBA_MAX_LEN, False, "jamba decode, 8 slots, ring of 4129"),
+     (4096, 0, "jamba prefill of 4096")),
+    (7, 56, 8, 128, "llava-next-34b", (LLAVA_BATCH, LLAVA_MAX_LEN, False, "llava decode, 4 slots, ring of 2304"),
+     (2048, 0, "llava prefill of 2048")),
+    (1, 24, 24, 64, "musicgen-medium", (8, MUSICGEN_MAX_LEN, False, "musicgen decode, 8 slots, ring of 1057"),
+     (PREFIX_LEN + FRONTEND_PROMPT, 0, "musicgen prefill of 256 prefix features + 1024 tokens")),
+)
+# Logits, kernel vs plain path, of the largest |logit|, in fp32 at a cut
+# depth (moonshot 4 layers, mixtral 2, jamba 2, musicgen and llava 4). For
+# the MoE stacks: in bf16 a 1e-2 difference in an
 # attention output can flip a near-tie between experts, and the flipped
 # token's FFN output then moves by a large share, so the bf16 full-depth
 # logits are only checked finite and the share of routings the two paths
 # agree on is reported. In fp32 the two paths stay 1e-6 to 1e-5 of the
 # largest |logit| apart, which flips no routing; the limit admits that and
 # refuses an O(|logit|) error.
-MOE_LOGIT_TOL, MOE_LAYERS, MIXTRAL_LAYERS, MIXTRAL_CHECK_LAYERS = 1e-3, 4, 4, 2
+CUT_LOGIT_TOL, MOE_LAYERS, MIXTRAL_LAYERS, MIXTRAL_CHECK_LAYERS = 1e-3, 4, 4, 2
 
 
 def check(ok: bool, what: str) -> None:
@@ -182,8 +275,10 @@ EARLIER_MS = {"flash_decode": 1.1745, "flash_attention_fwd": 1.3177, "ssd_scan":
 # the kernels line holds names, strings, this run's measurements and
 # bound_ms; derived rates, constants and quoted times stay in --out's record
 LINE_KEYS = ("name", "route", "source", "replaces", "tpu_kernel", "launches", "launches_per_step",
-             "launches_by_path", "max_abs_err", "max_scaled_err", "ms", "kernel_ms", "eager_ms", "plain_ms",
-             "library_ms", "library_note", "timing", "bound_ms", "bound_by", "groupings", "design")
+             "launches_by_path", "max_abs_err", "max_scaled_err", "max_scaled_err_by_dtype",
+             "max_terms_err_mamba_shape", "ms", "kernel_ms",
+             "eager_ms", "plain_ms", "library_ms", "library_note", "timing", "bound_ms", "bound_by", "groupings",
+             "mamba_shape", "design")
 DESIGN = {
     "flash_decode": "split S into 256-key blocks (fixed, batch-invariant), 16-byte loads, "
                     "8 key rows in flight per lane, fixed-order combine kernel",
@@ -476,6 +571,80 @@ def simulate(card: str) -> dict:
     return out
 
 
+def scaled_err(a, b) -> float:
+    """Largest |a - b| / (|b| + the largest |b| of its row), a row being
+    the last axis: one time step's P values of y, one state row of h, one
+    token's features. Each element is held to its own scale, so a few huge
+    gates cannot hide the error of the elements around them; where the
+    scale is 0 the two must be equal."""
+    a, b = a.float(), b.float()
+    scale = b.abs() + b.abs().amax(dim=-1, keepdim=True)
+    return float(((a - b).abs() / scale.clamp_min(1e-30)).max())
+
+
+def terms_err(a, b, terms) -> float:
+    """Largest |a - b| over the magnitude of the terms each element of b
+    sums (fp64)."""
+    return float(((a.double() - b.double()).abs() / terms.clamp_min(1e-300)).max())
+
+
+def k3_terms(x, loga, b, c, chunk):
+    """The magnitude of the terms each element of y sums: the plain version
+    in fp64 on |x|, loga, |b|, |c| (folded inputs)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
+
+    return ssm_scan_plain(x.double().abs(), loga.double(), b.double().abs(), c.double().abs(), chunk)[0]
+
+
+def k3_exact(x, loga, b, c, chunk):
+    """K3's reference: the plain version on the same (folded) inputs widened
+    to fp64, so that it sums in fp64 (summed in fp32 it is itself up to
+    5e-5 of an element's scale from the exact result at input gates near
+    e^10, scripts/k3_precision.py); y rounded to x's dtype, as the kernel
+    rounds it, and h in fp32."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
+
+    y, h = ssm_scan_plain(*(t.double() for t in (x, loga, b, c)), chunk)
+    return y.to(x.dtype), h.float()
+
+
+def plain_scan(x, loga, b, c, chunk=256):
+    """The plain path's stand-in for ``ops.ssm_scan`` (model layout in and
+    out): :func:`k3_exact` on the folded inputs."""
+    from repro_torch.kernels.ssm_scan import fold, unfold
+
+    y, h = k3_exact(*fold(x, loga, b, c, chunk), chunk)
+    return unfold(y, h, x.shape[0], x.shape[1], x.shape[-1], b.shape[-1])
+
+
+def k3_bit_checks(f, rows: int) -> dict:
+    """K3 on the folded inputs ``f``, bit for bit: two calls give the same
+    bits, each group of ``rows`` rows (one head, or one prompt's heads)
+    called alone gives the bits it gives in the call, and a call replayed
+    from a CUDA graph equals the eager call (no atomics; nothing is
+    allocated or set inside the launch)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    y1, h1 = ssm_scan_cuda(*f, 256)
+    y2, h2 = ssm_scan_cuda(*f, 256)
+    starts = range(0, f[0].shape[0], rows)
+    alone = [ssm_scan_cuda(*(t[i:i + rows].clone() for t in f), 256) for i in starts]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssm_scan_cuda(*f, 256)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        yg, hg = ssm_scan_cuda(*f, 256)
+    graph.replay()
+    torch.cuda.synchronize()
+    return {"two_calls": torch.equal(y1, y2) and torch.equal(h1, h2),
+            "rows_alone": all(torch.equal(y1[i:i + rows], y) and torch.equal(h1[i:i + rows], h)
+                              for i, (y, h) in zip(starts, alone)),
+            "graph_replay": torch.equal(yg, y1) and torch.equal(hg, h1)}
+
+
 def eager_ms(fn, iters: int = 5) -> float:
     """Host time of one synchronised call of ``fn`` (after one warm-up)."""
     fn()
@@ -511,17 +680,20 @@ def window_pairs(sq: int, window: int) -> int:
 
 
 def groupings(rnd, gen, card: str) -> dict:
-    """K1 and K2 at the head groupings of the dense and MoE archs
-    (``GROUPINGS``), head_dim 128, against their plain versions in bf16 and
-    fp32 at the tolerances of phases 3 and 4: K1 at S 2048 with phase 3's
-    masks and over a wrapped ring (every key of a 4096-key ring valid), and
-    at the serves' own K1 shapes: moonshot's ring of 1057 at G 1 (4 full
-    256-key splits and a tail of 33, phase 3's masks) and mixtral's batch 4
-    over the wrapped ring at G 6; its rows at G 16 bit-identical to each row
-    alone; K2 causal at Sq 1024 and,
-    at G 6, with window 4096 at Sq 8192 (its plain version in chunks of
-    1024 query rows). Then each timed in bf16 at the shapes its serve gives
-    it, beside its bound and SDPA."""
+    """K1 and K2 at the head groupings and widths of the dense, MoE, hybrid
+    and frontend archs (``GROUPINGS``: G = 1, 6, 16, 8, 7 at head_dim 128,
+    G = 1 at 64) against their plain versions in bf16 and fp32 at the
+    tolerances of phases 3 and 4, absolute and each element against its own
+    scale (``ATTN_SCALED_TOL``): K1 at S 2048 with phase 3's masks, over
+    a wrapped ring (every key of a 4096-key ring valid), and at each serve's
+    own K1 shape (moonshot's ring of 1057 at G 1, a tail of 33 after four
+    256-key splits; mixtral's batch 4 over the wrapped ring at G 6; jamba's
+    ring of 4129 at G 8; llava's batch 4 over 2304 at G 7; musicgen's ring
+    of 1057 at head_dim 64); its rows at G 16 bit-identical to each row
+    alone; K2 causal at Sq 1024 and at each serve's longest prefill (at G 6
+    with window 4096 at Sq 8192), its plain version in chunks of 1024 query
+    rows. Then each timed in bf16 at the shapes its serve gives it, beside
+    its bound and SDPA."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import SPLIT_KEYS, decode_attention_cuda, decode_attention_plain
@@ -529,13 +701,12 @@ def groupings(rnd, gen, card: str) -> dict:
     from repro_torch.models.common import causal_mask
 
     t_phase = time.perf_counter()
-    D, B, scale = 128, 8, 128**-0.5
     dev = torch.device("cuda")
 
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
-    def k2_plain(q, k, v, window):
+    def k2_plain(q, k, v, window, scale):
         """The plain version over 1024-row query chunks, each against the
         keys it can see (shift-invariant masks: q_offset = chunk start -
         first key)."""
@@ -547,69 +718,86 @@ def groupings(rnd, gen, card: str) -> dict:
                                               window=window, scale=scale))
         return torch.cat(outs, dim=1)
 
-    rec = {"k1_err": {}, "k2_err": {}, "k1_cases": [], "k1_batch_invariant": [], "k1_times": [], "k2_times": []}
-    for G, H, KH, archs in GROUPINGS:
+    def masks(b, S):
+        """Phase 3's masks: random validity; row 1 full; row 2 all-invalid;
+        row 3 valid only in the last 32 keys; one row (5, or 0 in a batch
+        below 6) valid only in the last split. Returns the mask and the rows
+        held (all but the all-invalid one)."""
+        valid = (torch.rand(b, S, generator=gen, device=dev) > 0.3).to(torch.int32)
+        valid[1] = 1
+        valid[2] = 0
+        valid[3] = 0
+        valid[3, (S - 1) // 32 * 32:] = 1
+        last = 5 if b > 5 else 0
+        valid[last] = 0
+        valid[last, (S - 1) // SPLIT_KEYS * SPLIT_KEYS:] = 1
+        return valid, [i for i in range(b) if i != 2]
+
+    rec = {"k1_err": {}, "k2_err": {}, "k1_scaled": {}, "k2_scaled": {}, "k1_cases": [], "k1_batch_invariant": [],
+           "k1_times": [], "k2_times": []}
+    for G, H, KH, D, archs, (b1, s1, ring1, _), (sq2, win2, _) in GROUPINGS:
+        scale, key = D**-0.5, f"G{G} hd{D}"
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
-            worst = 0.0
-            # (S, every key valid, batch); the serves' shapes beside the others
-            cases = [(2048, False, B), (4096, True, B)] + {1: [(1057, False, 8)], 6: [(4096, True, 4)]}.get(G, [])
+            worst = scaled = 0.0
+            # (S, every key valid, batch): S 2048, a wrapped ring, and the serve's own shape
+            cases = [(2048, False, 8), (4096, True, 8)]
+            cases += [] if (s1, ring1, b1) in cases else [(s1, ring1, b1)]
             for S, ring, b in cases:
                 q = rnd(b, H, D, dtype=dtype)
                 k, v = rnd(b, S, KH, D, dtype=dtype), rnd(b, S, KH, D, dtype=dtype)
                 if ring:
-                    valid = torch.ones(b, S, dtype=torch.int32, device=dev)
+                    valid, rows = torch.ones(b, S, dtype=torch.int32, device=dev), list(range(b))
                 else:
-                    valid = (torch.rand(b, S, generator=gen, device=dev) > 0.3).to(torch.int32)
-                    valid[1] = 1
-                    valid[2] = 0  # all-invalid row
-                    valid[3] = 0
-                    valid[3, (S - 1) // 32 * 32:] = 1
-                    valid[5] = 0
-                    valid[5, (S - 1) // SPLIT_KEYS * SPLIT_KEYS:] = 1
+                    valid, rows = masks(b, S)
                 got = decode_attention_cuda(q, k, v, valid, scale=scale)
                 exp = decode_attention_plain(q, k, v, valid, scale=scale)
                 torch.cuda.synchronize()
-                rows = list(range(b)) if ring else [0, 1, 3, 4, 5, 6, 7]
                 if not ring:
-                    check(float(got[0][2].abs().max()) == 0.0, f"K1 G {G}: the all-invalid row is exactly zero")
+                    check(float(got[0][2].abs().max()) == 0.0, f"K1 {key}: the all-invalid row is exactly zero")
                 worst = max(worst, err(got[0][rows], exp[0][rows]))
-                rec["k1_cases"].append(f"G={G}, B={b}, S={S}, {'wrapped ring' if ring else 'masks'}, {dtype}")
+                scaled = max(scaled, scaled_err(got[0][rows], exp[0][rows]))
+                rec["k1_cases"].append(f"G={G}, hd={D}, B={b}, S={S}, {'wrapped ring' if ring else 'masks'}, {dtype}")
                 if G == 16 and not ring:
                     alone = [decode_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1], valid[i:i + 1], scale=scale)
                              for i in range(b)]
                     check(all(torch.equal(x[i:i + 1], y) for i in range(b) for x, y in zip(got, alone[i])),
                           f"K1 G 16 batch-8 rows bit-identical to batch-1 calls ({dtype})")
                     rec["k1_batch_invariant"].append(f"G=16, B=8, {dtype}, S={S}")
-            check(worst < tol, f"K1 vs plain at G {G} ({H}/{KH}) {dtype}: {worst} >= {tol}")
-            rec["k1_err"][f"G{G} {dtype}"] = worst
-            worst = 0.0
-            for Sq, window in ((1024, 0),) + (((8192, 4096),) if G == 6 else ()):
+            # K1's output is fp32 whatever its inputs' type
+            stol = ATTN_SCALED_TOL[torch.float32]
+            check(worst < tol, f"K1 vs plain at {key} ({H}/{KH}) {dtype}: {worst} >= {tol}")
+            check(scaled <= stol, f"K1 vs plain at {key} ({H}/{KH}) {dtype}: scaled err {scaled} > {stol}")
+            rec["k1_err"][f"{key} {dtype}"], rec["k1_scaled"][f"{key} {dtype}"] = worst, scaled
+            worst = scaled = 0.0
+            for Sq, window in sorted({(1024, 0), (sq2, win2)}):
                 q = rnd(1, Sq, H, D, dtype=dtype)
                 k, v = rnd(1, Sq, KH, D, dtype=dtype), rnd(1, Sq, KH, D, dtype=dtype)
-                got = flash_attention_cuda(q, k, v, window=window, scale=scale)
-                worst = max(worst, err(got, k2_plain(q, k, v, window)))
-            check(worst < tol, f"K2 vs plain at G {G} ({H}/{KH}) {dtype}: {worst} >= {tol}")
-            rec["k2_err"][f"G{G} {dtype}"] = worst
-            print(f"K1, K2 vs plain at G {G} ({H} q heads / {KH} KV heads: {archs}), {dtype}: max abs err K1 "
-                  f"{rec['k1_err'][f'G{G} {dtype}']:.3e}, K2 {worst:.3e} (tol {tol})")
+                got, exp = flash_attention_cuda(q, k, v, window=window, scale=scale), k2_plain(q, k, v, window, scale)
+                worst, scaled = max(worst, err(got, exp)), max(scaled, scaled_err(got, exp))
+            check(worst < tol, f"K2 vs plain at {key} ({H}/{KH}) {dtype}: {worst} >= {tol}")
+            check(scaled <= ATTN_SCALED_TOL[dtype],
+                  f"K2 vs plain at {key} ({H}/{KH}) {dtype}: scaled err {scaled} > {ATTN_SCALED_TOL[dtype]}")
+            rec["k2_err"][f"{key} {dtype}"], rec["k2_scaled"][f"{key} {dtype}"] = worst, scaled
+            print(f"K1, K2 vs plain at G {G}, head_dim {D} ({H} q heads / {KH} KV heads: {archs}), {dtype}: max abs "
+                  f"err K1 {rec['k1_err'][f'{key} {dtype}']:.3e}, K2 {worst:.3e} (tol {tol}); scaled err K1 "
+                  f"{rec['k1_scaled'][f'{key} {dtype}']:.3e} (tol {stol:.0e}), K2 {scaled:.3e} "
+                  f"(tol {ATTN_SCALED_TOL[dtype]:.0e})")
     print(f"K1 cases held against the plain version: {rec['k1_cases']}")
     print(f"K1 batch invariance at G 16: {rec['k1_batch_invariant']}")
 
     # times at the shapes each grouping's serve gives the kernels (bf16)
     bf = torch.bfloat16
-    k1_shapes = ((1, 8, 16, 16, 1057, "moonshot decode, 8 slots, ring of 1057"),
-                 (6, 4, 48, 8, 4096, "mixtral decode, 4 slots, wrapped 4096 ring"),
-                 (16, 8, 128, 8, 2048, "llama3-405b decode, 8 slots at 2048"))
-    for G, b, H, KH, S, what in k1_shapes:
+    for G, H, KH, D, _, (b, S, ring, what), _ in GROUPINGS:
+        scale = D**-0.5
         q, k, v = rnd(b, H, D, dtype=bf), rnd(b, S, KH, D, dtype=bf), rnd(b, S, KH, D, dtype=bf)
-        if G == 6:
+        if ring:
             valid = torch.ones(b, S, dtype=torch.int32, device=dev)
         else:
             ends = torch.randint(128, S + 1, (b, 1), generator=gen, device=dev)
             valid = (torch.arange(S, device=dev)[None] < ends).to(torch.int32)
         mask = valid.bool()[:, None, None, :]
         nbytes = (q.numel() + k.numel() + v.numel()) * 2 + valid.numel() * 4 + b * H * D * 4
-        t = {"G": G, "shape": f"q ({b},{H},{D}), k/v ({b},{S},{KH},{D}) bf16", "what": what,
+        t = {"G": G, "head_dim": D, "shape": f"q ({b},{H},{D}), k/v ({b},{S},{KH},{D}) bf16", "what": what,
              "ms": graph_ms(lambda: decode_attention_cuda(q, k, v, valid, scale=scale)),
              "plain_ms": timed_ms(lambda: decode_attention_plain(q, k, v, valid, scale=scale)),
              "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
@@ -617,10 +805,8 @@ def groupings(rnd, gen, card: str) -> dict:
              "bound_ms": max(nbytes / HBM_BYTES_PER_S, 4 * b * H * S * D / BF16_FLOPS) * 1e3,
              "bound_by": "bytes", "bytes": nbytes}
         rec["k1_times"].append(t)
-    k2_shapes = ((1, 1024, 16, 16, 0, "moonshot prefill of 1024"),
-                 (6, 8192, 48, 8, 4096, "mixtral prefill of 8192, window 4096"),
-                 (16, 1024, 128, 8, 0, "llama3-405b prefill of 1024"))
-    for G, Sq, H, KH, window, what in k2_shapes:
+    for G, H, KH, D, _, _, (Sq, window, what) in GROUPINGS:
+        scale = D**-0.5
         q, k, v = rnd(1, Sq, H, D, dtype=bf), rnd(1, Sq, KH, D, dtype=bf), rnd(1, Sq, KH, D, dtype=bf)
         flops = 4 * H * D * window_pairs(Sq, window)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
@@ -631,14 +817,14 @@ def groupings(rnd, gen, card: str) -> dict:
             mask = causal_mask(Sq, Sq, 0, window, dev)
             kr, vr = ks.repeat_interleave(G, dim=1), vs.repeat_interleave(G, dim=1)
             lib = lambda: F.scaled_dot_product_attention(qs, kr, vr, attn_mask=mask)  # noqa: E731
-            note = "SDPA with a (Sq, Sk) bool mask, K and V repeated to the 48 q heads"
+            note = f"SDPA with a (Sq, Sk) bool mask, K and V repeated to the {H} q heads"
         else:
             lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)  # noqa: E731
             note = "SDPA, GQA, causal"
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        t = {"G": G, "shape": f"q ({1},{Sq},{H},{D}), k/v (1,{Sq},{KH},{D}) bf16, window {window}", "what": what,
-             "ms": graph_ms(lambda: flash_attention_cuda(q, k, v, window=window, scale=scale), iters=5),
-             "plain_ms": timed_ms(lambda: k2_plain(q, k, v, window), iters=3),
+        t = {"G": G, "head_dim": D, "shape": f"q (1,{Sq},{H},{D}), k/v (1,{Sq},{KH},{D}) bf16, window {window}",
+             "what": what, "ms": graph_ms(lambda: flash_attention_cuda(q, k, v, window=window, scale=scale), iters=5),
+             "plain_ms": timed_ms(lambda: k2_plain(q, k, v, window, scale), iters=3),
              "library_ms": graph_ms(lib, iters=5), "library_note": note,
              "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
              "flops": flops}
@@ -648,24 +834,26 @@ def groupings(rnd, gen, card: str) -> dict:
             del kr, vr, mask
     for name, times in (("K1", rec["k1_times"]), ("K2", rec["k2_times"])):
         for t in times:
-            print(f"{name} at G {t['G']} ({t['what']}; {t['shape']}): {t['ms']:.5f} ms device (graph replay), bound "
-                  f"{t['bound_ms']:.5f} ms by {t['bound_by']}, plain {t['plain_ms']:.4f} ms, SDPA "
-                  f"{t['library_ms']:.5f} ms ({card})")
+            print(f"{name} at G {t['G']}, head_dim {t['head_dim']} ({t['what']}; {t['shape']}): {t['ms']:.5f} ms "
+                  f"device (graph replay), bound {t['bound_ms']:.5f} ms by {t['bound_by']}, plain "
+                  f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.5f} ms ({card})")
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"the groupings phase took {rec['phase_s']:.1f} s")
     free_card()
     return rec
 
 
-def paths_agree(cfg, params, prompt, max_len, steps: int = 4) -> dict:
-    """Prefill ``prompt`` and decode ``steps`` tokens on the kernel path (K2,
-    K1) and on the plain path (chunked attention, einsum decode), both fed
-    the kernel path's greedy tokens. Returns the largest |kernel - plain| logit, the largest
-    |plain| logit, whether every logit is finite and of shape (B, 1,
-    vocab), and, for a MoE stack, how the two paths routed: the share of
-    (token, slot) choices they agree on and whether all agree, over how
-    many MoE calls."""
+def paths_agree(cfg, params, prompt, max_len, steps: int = 4, prefix=None) -> dict:
+    """Prefill ``prompt`` (after the frontend's ``prefix`` features, where
+    given) and decode ``steps`` tokens on the kernel path (K2, K1, K3) and
+    on the plain path (chunked attention, einsum decode, :func:`plain_scan`
+    for K3), both fed the kernel path's greedy tokens. Returns the largest
+    |kernel - plain| logit, the largest |plain| logit, whether every logit
+    is finite and of shape (B, 1, vocab), and, for a MoE stack, how the two
+    paths routed: the share of (token, slot) choices they agree on and
+    whether all agree, over how many MoE calls."""
     from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.models import moe
 
@@ -674,17 +862,20 @@ def paths_agree(cfg, params, prompt, max_len, steps: int = 4) -> dict:
     routes = {name: [] for name in runs}
     route = moe.route
 
+    @contextlib.contextmanager
     def spied(name):
         def call(*args, **kwargs):
             r = route(*args, **kwargs)
             routes[name].append(r.top_i)
             return r
-        return mock.patch.object(moe, "route", call)
+        with mock.patch.object(moe, "route", call), \
+                mock.patch.object(ops, "ssm_scan", plain_scan if name == "plain" else ops.ssm_scan):
+            yield
 
     logits, caches = {}, {}
     for name, run in runs.items():
         with spied(name):
-            logits[name], caches[name] = M.prefill(cfg, run, params, prompt, max_len)
+            logits[name], caches[name] = M.prefill(cfg, run, params, prompt, max_len, prefix_features=prefix)
     worst, top, sound = 0.0, 0.0, True
     for step in range(steps + 1):
         a, b = logits["kernel"].float(), logits["plain"].float()
@@ -706,12 +897,13 @@ def paths_agree(cfg, params, prompt, max_len, steps: int = 4) -> dict:
     return out
 
 
-def moe_serve(cfg, params, lens, max_len: int, batch: int, card: str, spy_kernels: bool = False) -> dict:
+def serve_arena(cfg, params, lens, max_len: int, batch: int, card: str, spy_kernels: bool = False) -> dict:
     """Serve ``lens`` SyntheticCorpus prompts, 32 new tokens each, greedy,
     admit_all, through one ``ServeLoop`` arena on the kernel path, the launch
     counts at 0 just before. Checks completion and the exact launch
-    identity (K1 = layers x decode calls, K2 = layers x prefills); records
-    each prefill's ``moe_drop_frac`` (mean and max over its layers), and
+    identity (K1 = attention layers x decode calls, K2 = attention layers x
+    prefills, K3 = Mamba and mLSTM layers x prefills); records each
+    prefill's ``moe_drop_frac`` (mean and max over its MoE layers), and
     with ``spy_kernels`` the window of every K2 call and whether K1 read a
     wrapped ring (every key of a row valid at full ring capacity). The spies
     only keep references inside the timed window (each K1 mask is a fresh
@@ -762,19 +954,26 @@ def moe_serve(cfg, params, lens, max_len: int, batch: int, card: str, spy_kernel
     stats = loop.stats()
     peak = torch.cuda.max_memory_allocated()
     L = cfg.num_layers
+    kinds = [cfg.layer_kind(i) for i in range(L)]
+    n_attn, n_scan = kinds.count("attn"), kinds.count("mamba") + kinds.count("mlstm")
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(L))
     check(stats["completed"] == len(lens) and all(len(r.tokens) == 32 for r in reqs),
           f"{cfg.name}: {stats['completed']}/{len(lens)} requests with 32 tokens")
     check(stats["decode_calls"] < stats["decode_steps"], f"{cfg.name}: the arena batches decode steps")
-    check(stats["prefill_calls"] == len(lens) and launches["flash_attention"] == L * stats["prefill_calls"],
-          f"{cfg.name}: K2 launches {launches['flash_attention']} != {L} x {stats['prefill_calls']} prefills")
-    check(launches["decode_attention"] == L * stats["decode_calls"],
-          f"{cfg.name}: K1 launches {launches['decode_attention']} != {L} x {stats['decode_calls']} decode calls")
-    check(len(drops) == L * len(lens), f"{cfg.name}: {len(drops)} MoE prefill calls != {L} x {len(lens)}")
-    per = torch.stack(drops).view(len(lens), L).float()
+    check(stats["prefill_calls"] == len(lens) and launches["flash_attention"] == n_attn * stats["prefill_calls"],
+          f"{cfg.name}: K2 launches {launches['flash_attention']} != {n_attn} x {stats['prefill_calls']} prefills")
+    check(launches["decode_attention"] == n_attn * stats["decode_calls"],
+          f"{cfg.name}: K1 launches {launches['decode_attention']} != {n_attn} x {stats['decode_calls']} decode calls")
+    check(launches["ssm_scan"] == n_scan * stats["prefill_calls"],
+          f"{cfg.name}: K3 launches {launches['ssm_scan']} != {n_scan} x {stats['prefill_calls']} prefills")
+    check(len(drops) == n_moe * len(lens), f"{cfg.name}: {len(drops)} MoE prefill calls != {n_moe} x {len(lens)}")
     out = {**stats, "launches": launches, "peak_bytes": peak, "prompt_lens": list(lens), "layers": L,
            "k1_per_decode_call": launches["decode_attention"] / stats["decode_calls"],
            "k2_per_prefill": launches["flash_attention"] / stats["prefill_calls"],
-           "prefill_drop_frac_mean": per.mean(1).tolist(), "prefill_drop_frac_max": per.amax(1).tolist()}
+           "k3_per_prefill": launches["ssm_scan"] / stats["prefill_calls"]}
+    if n_moe:
+        per = torch.stack(drops).view(len(lens), n_moe).float()
+        out.update(prefill_drop_frac_mean=per.mean(1).tolist(), prefill_drop_frac_max=per.amax(1).tolist())
     if spy_kernels:
         out["k2_windows"] = sorted(set(windows))
         out["k1_wrapped_calls"] = sum(bool(m.bool().all(dim=1).any()) for m in wrapped)
@@ -783,66 +982,29 @@ def moe_serve(cfg, params, lens, max_len: int, batch: int, card: str, spy_kernel
           f"{stats['decode_calls']} decode calls, {stats['prefill_calls']} prefills, occupancy "
           f"{stats['slot_occupancy']:.3f}, wall {stats['wall_s']:.2f} s, peak memory {peak / 2**30:.2f} GiB; "
           f"launches {launches}")
-    print(f"{cfg.name} moe_drop_frac per prefill (mean over {L} layers): "
-          + ", ".join(f"{n}: {d:.4f}" for n, d in zip(lens, out["prefill_drop_frac_mean"])))
+    if n_moe:
+        print(f"{cfg.name} moe_drop_frac per prefill (mean over {n_moe} MoE layers): "
+              + ", ".join(f"{n}: {d:.4f}" for n, d in zip(lens, out["prefill_drop_frac_mean"])))
     return out
 
 
-def serve_moonshot(card: str) -> dict:
-    """moonshot-v1-16b-a3b at full width, bf16: (a) the kernel path against
-    the plain path with the weights in fp32, cut to the first MOE_LAYERS
-    layers, logits within MOE_LOGIT_TOL and identical routing; (b) the
-    48-layer model (random weights from a seeded generator on the card, its
-    parameter count equal to ``count_params_exact``) serving 16 prompts
-    through one ``ServeLoop`` arena; (c) the decode step at batch 8, eager
-    and replayed as a CUDA graph, beside its byte bound; (d) the full-depth
-    bf16 logits of both paths finite, and how often they route alike."""
-    from repro_torch.configs import get_config
+def decode_step_bound(cfg, params, max_len: int, pos: int, card: str) -> dict:
+    """A decode step at batch 8 on a fresh arena of ring ``max_len`` whose
+    rows sit at ``pos``: eager (host clock) and replayed as a CUDA graph,
+    beside its byte bound, from the tensors it must move: every weight but
+    the embedding (8 rows of it) and the experts; the experts, all of them
+    (as the batched product over E reads them) or only those this step
+    routed to; the whole cache read (KV and Mamba state) and the Mamba
+    state written (each row's new K and V slot, under 0.01 % of the KV, is
+    left out); the logits written."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.models import model as M
     from repro_torch.models import moe
 
-    t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    cfg = get_config("moonshot-v1-16b-a3b")
-    L = cfg.num_layers
-    rec = {}
-    # (a) fp32, MOE_LAYERS layers: two 512-token prompts (one dispatch group each)
-    cut = dataclasses.replace(cfg, num_layers=MOE_LAYERS, compute_dtype="float32")
-    params = M.init_model(cut, torch.Generator(device=dev).manual_seed(0), dtype=torch.float32)
-    prompt = torch.randint(0, cfg.vocab_size, (2, 512), generator=torch.Generator(device=dev).manual_seed(1),
-                           device=dev)
-    agree = paths_agree(cut, params, prompt, 520)
-    agree["tol"] = MOE_LOGIT_TOL * max(1.0, agree["max_abs_logit"])
-    agree["weights_gb"] = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
-    print(f"moonshot fp32, first {MOE_LAYERS} layers ({agree['weights_gb']:.1f} GB of weights), kernel vs plain "
-          f"(prefill 2x512 + 4 decode steps): max abs diff {agree['max_abs_diff']:.4e}, largest |logit| "
-          f"{agree['max_abs_logit']:.3f}, tol {agree['tol']:.4e}; routing identical: {agree['routing_identical']} "
-          f"over {agree['moe_calls']} MoE calls")
-    check(agree["sound"] and agree["max_abs_diff"] <= agree["tol"],
-          f"moonshot fp32 {MOE_LAYERS}-layer logits kernel vs plain: {agree}")
-    check(agree["routing_identical"], f"moonshot fp32 {MOE_LAYERS} layers: the two paths route alike: {agree}")
-    rec["fp32_cut"] = agree
-    del params
-    free_card()
-
-    # (b) the full-width serve
-    t0 = time.perf_counter()
-    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in leaves(params))
-    rec["params"], rec["init_s"] = n_params, time.perf_counter() - t0
-    check(n_params == M.count_params_exact(cfg), f"moonshot: {n_params} params != {M.count_params_exact(cfg)}")
-    print(f"init moonshot-v1-16b-a3b ({n_params} params = count_params_exact, "
-          f"{M.count_active_params_exact(cfg)} active per token, bf16, "
-          f"{n_params * 2 / 1e9:.1f} GB): {rec['init_s']:.1f} s")
-    lens = [128, 256, 384, 512] * 3 + [1024] * 4
-    rec["serve"] = moe_serve(cfg, params, lens, 1057, 8, card)
-
-    # (c) the decode step at batch 8 (a fresh arena at position 1024)
     run = RunConfig(remat="none", attention_impl="pallas", decode_attention_impl="kernel")
-    arena = M.init_cache(cfg, 8, 1057, dev)
-    arena["pos"].fill_(1024)
+    arena = M.init_cache(cfg, 8, max_len, dev)
+    arena["pos"].fill_(pos)
     toks = torch.randint(0, cfg.vocab_size, (8, 1), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
     act = torch.ones(8, dtype=torch.bool, device=dev)
     experts_hit = []
@@ -855,36 +1017,100 @@ def serve_moonshot(card: str) -> dict:
 
     with mock.patch.object(moe, "route", spy):
         M.decode_step(cfg, run, params, arena, toks, active=act)
-    arena["pos"].fill_(1024)
+    arena["pos"].fill_(pos)
     step_ms = eager_ms(lambda: M.decode_step(cfg, run, params, arena, toks, active=act))
-    arena["pos"].fill_(1024)
+    arena["pos"].fill_(pos)
     step_graph_ms = graph_ms(lambda: M.decode_step(cfg, run, params, arena, toks, active=act), iters=4)
-    # the step's byte bound, from the tensors it reads: every weight but the
-    # embedding (8 rows of it) and the experts, the experts (all of them, as
-    # the batched product over E reads them, or only those this step routed
-    # to), the whole KV arena, and the logits it writes
-    e_bytes = [sum(blk["moe"][w].numel() * blk["moe"][w].element_size() for w in ("gate", "up", "down"))
-               for blk in params["layers"]]
-    other = sum(t.numel() * t.element_size() for t in leaves(params)) - sum(e_bytes) \
-        - params["embed"].numel() * params["embed"].element_size() + 8 * cfg.d_model * 2
-    kv = sum(arena[k].numel() * arena[k].element_size() for k in ("k", "v"))
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    e_bytes = [sum(nbytes(blk["moe"][w]) for w in ("gate", "up", "down")) for blk in params["layers"] if "moe" in blk]
+    other = sum(nbytes(t) for t in leaves(params)) - sum(e_bytes) - nbytes(params["embed"]) \
+        + 8 * cfg.d_model * params["embed"].element_size()
+    kv = sum(nbytes(arena[k]) for k in ("k", "v") if k in arena)
+    state = sum(nbytes(t) for t in leaves(arena.get("mamba", {})))
     logits_out = 8 * cfg.vocab_size * 2
     routed = sum(b * n / cfg.num_experts for b, n in zip(e_bytes, experts_hit))
-    rec["step"] = {"eager_ms": step_ms, "graph_ms": step_graph_ms, "host_wait": 1 - step_graph_ms / step_ms,
-                   "bytes_all_experts": other + sum(e_bytes) + kv + logits_out,
-                   "bytes_routed_experts": other + routed + kv + logits_out,
-                   "expert_bytes": sum(e_bytes), "other_weight_bytes": other, "kv_bytes": kv,
-                   "experts_routed_per_layer_mean": sum(experts_hit) / len(experts_hit)}
-    rec["step"]["bound_ms_all_experts"] = rec["step"]["bytes_all_experts"] / HBM_BYTES_PER_S * 1e3
-    rec["step"]["bound_ms_routed_experts"] = rec["step"]["bytes_routed_experts"] / HBM_BYTES_PER_S * 1e3
-    st = rec["step"]
-    print(f"moonshot decode step (8 slots at 1024, ring 1057): eager {step_ms:.2f} ms, CUDA graph "
-          f"{step_graph_ms:.3f} ms, the eager step waits for the host {st['host_wait']:.1%}; byte bound "
-          f"{st['bound_ms_all_experts']:.3f} ms reading every expert ({st['expert_bytes'] / 1e9:.2f} GB experts, "
-          f"{st['other_weight_bytes'] / 1e9:.2f} GB other weights, {kv / 1e9:.2f} GB KV), "
-          f"{st['bound_ms_routed_experts']:.3f} ms reading only the routed ones "
-          f"({st['experts_routed_per_layer_mean']:.1f} of {cfg.num_experts} per layer) ({card})")
-    del arena
+    st = {"eager_ms": step_ms, "graph_ms": step_graph_ms, "host_wait": 1 - step_graph_ms / step_ms,
+          "bytes_all_experts": other + sum(e_bytes) + kv + 2 * state + logits_out,
+          "bytes_routed_experts": other + routed + kv + 2 * state + logits_out,
+          "expert_bytes": sum(e_bytes), "other_weight_bytes": other, "kv_bytes": kv, "mamba_state_bytes": state,
+          "experts_routed_per_layer_mean": sum(experts_hit) / len(experts_hit)}
+    st["bound_ms_all_experts"] = st["bytes_all_experts"] / HBM_BYTES_PER_S * 1e3
+    st["bound_ms_routed_experts"] = st["bytes_routed_experts"] / HBM_BYTES_PER_S * 1e3
+    print(f"{cfg.name} ({cfg.num_layers} layers) decode step (8 slots at {pos}, ring {max_len}): eager "
+          f"{step_ms:.2f} ms, CUDA graph {step_graph_ms:.3f} ms, the eager step waits for the host "
+          f"{st['host_wait']:.1%}; byte bound {st['bound_ms_all_experts']:.3f} ms reading every expert "
+          f"({st['expert_bytes'] / 1e9:.2f} GB experts, {other / 1e9:.2f} GB other weights, {kv / 1e9:.2f} GB KV, "
+          f"{state / 1e9:.3f} GB Mamba state read and written), {st['bound_ms_routed_experts']:.3f} ms reading only "
+          f"the routed ones ({st['experts_routed_per_layer_mean']:.1f} of {cfg.num_experts} per layer) ({card})")
+    return st
+
+
+def fp32_cut_check(cut, prompt, max_len: int, what: str, prefix=None) -> dict:
+    """``cut``, a config at a cut depth in fp32, on fp32 random weights from
+    seed 0: :func:`paths_agree` on ``prompt`` (after ``prefix``), the logits
+    within CUT_LOGIT_TOL of the largest |logit| and, for a MoE stack, the
+    same routing on both paths. Frees the weights."""
+    from repro_torch.models import model as M
+
+    params = M.init_model(cut, torch.Generator(device="cuda").manual_seed(0), dtype=torch.float32)
+    agree = paths_agree(cut, params, prompt, max_len, prefix=prefix)
+    agree["tol"] = CUT_LOGIT_TOL * max(1.0, agree["max_abs_logit"])
+    agree["weights_gb"] = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+    del params
+    free_card()
+    routing = (f"routing identical: {agree['routing_identical']} over {agree['moe_calls']} MoE calls"
+               if agree["moe_calls"] else "no MoE")
+    print(f"{cut.name} fp32, first {cut.num_layers} layers ({agree['weights_gb']:.1f} GB of weights), kernel vs "
+          f"plain ({what}): max abs diff {agree['max_abs_diff']:.4e}, largest |logit| {agree['max_abs_logit']:.3f}, "
+          f"tol {agree['tol']:.4e}; {routing}")
+    check(agree["sound"] and agree["max_abs_diff"] <= agree["tol"],
+          f"{cut.name} fp32 {cut.num_layers}-layer logits kernel vs plain: {agree}")
+    check(not agree["moe_calls"] or agree["routing_identical"],
+          f"{cut.name} fp32 {cut.num_layers} layers: the two paths route alike: {agree}")
+    return agree
+
+
+def serve_moonshot(card: str) -> dict:
+    """moonshot-v1-16b-a3b at full width, bf16: (a) the kernel path against
+    the plain path with the weights in fp32, cut to the first MOE_LAYERS
+    layers, logits within CUT_LOGIT_TOL and identical routing; (b) the
+    48-layer model (random weights from a seeded generator on the card, its
+    parameter count equal to ``count_params_exact``) serving 16 prompts
+    through one ``ServeLoop`` arena; (c) the decode step at batch 8, eager
+    and replayed as a CUDA graph, beside its byte bound; (d) the full-depth
+    bf16 logits of both paths finite, and how often they route alike."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config("moonshot-v1-16b-a3b")
+    L = cfg.num_layers
+    rec = {}
+    # (a) fp32, MOE_LAYERS layers: two 512-token prompts (one dispatch group each)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 512), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    rec["fp32_cut"] = fp32_cut_check(dataclasses.replace(cfg, num_layers=MOE_LAYERS, compute_dtype="float32"),
+                                     prompt, 520, "prefill 2x512 + 4 decode steps")
+
+    # (b) the full-width serve
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    rec["params"], rec["init_s"] = n_params, time.perf_counter() - t0
+    check(n_params == M.count_params_exact(cfg), f"moonshot: {n_params} params != {M.count_params_exact(cfg)}")
+    print(f"init moonshot-v1-16b-a3b ({n_params} params = count_params_exact, "
+          f"{M.count_active_params_exact(cfg)} active per token, bf16, "
+          f"{n_params * 2 / 1e9:.1f} GB): {rec['init_s']:.1f} s")
+    lens = [128, 256, 384, 512] * 3 + [1024] * 4
+    rec["serve"] = serve_arena(cfg, params, lens, 1057, 8, card)
+
+    # (c) the decode step at batch 8 (a fresh arena at position 1024)
+    rec["step"] = decode_step_bound(cfg, params, 1057, 1024, card)
 
     # (d) full depth, bf16: finite logits, and how often the paths route alike
     prompt = torch.randint(0, cfg.vocab_size, (2, 512), generator=torch.Generator(device=dev).manual_seed(3),
@@ -907,7 +1133,7 @@ def serve_mixtral_cut(card: str) -> dict:
     cut): (a) the kernel path against the plain path with the weights in
     fp32, cut to MIXTRAL_CHECK_LAYERS layers, on a 6144-token prompt (past
     the 4096 window, so the prefill wraps the ring), logits within
-    MOE_LOGIT_TOL and identical routing; (b) bf16, one ``ServeLoop`` arena
+    CUT_LOGIT_TOL and identical routing; (b) bf16, one ``ServeLoop`` arena
     of batch 4 over prompts of 2048, 4096, 6144 and 8192 (multiples of the
     2048 dispatch group, before, at and past the window): K2 runs with
     window 4096 on every prefill and K1 over the wrapped ring."""
@@ -922,23 +1148,11 @@ def serve_mixtral_cut(card: str) -> dict:
     print(f"mixtral-8x22b cut: {rec['cut']} (d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
           f"{cfg.num_experts} experts top-{cfg.experts_per_token}, d_ff {cfg.ffn_dim}, window {cfg.sliding_window}, "
           f"group {cfg.moe_group_size})")
-    cut = dataclasses.replace(cfg, num_layers=MIXTRAL_CHECK_LAYERS, compute_dtype="float32")
-    params = M.init_model(cut, torch.Generator(device=dev).manual_seed(0), dtype=torch.float32)
     prompt = torch.randint(0, cfg.vocab_size, (1, 6144), generator=torch.Generator(device=dev).manual_seed(1),
                            device=dev)
-    agree = paths_agree(cut, params, prompt, 6144 + 8)
-    agree["tol"] = MOE_LOGIT_TOL * max(1.0, agree["max_abs_logit"])
-    agree["weights_gb"] = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
-    print(f"mixtral fp32, {MIXTRAL_CHECK_LAYERS} layers ({agree['weights_gb']:.1f} GB of weights), kernel vs plain "
-          f"(prefill 1x6144 past the window + 4 decode steps over the wrapped ring): max abs diff "
-          f"{agree['max_abs_diff']:.4e}, largest |logit| {agree['max_abs_logit']:.3f}, tol {agree['tol']:.4e}; "
-          f"routing identical: {agree['routing_identical']} over {agree['moe_calls']} MoE calls")
-    check(agree["sound"] and agree["max_abs_diff"] <= agree["tol"],
-          f"mixtral fp32 {MIXTRAL_CHECK_LAYERS}-layer logits kernel vs plain: {agree}")
-    check(agree["routing_identical"], f"mixtral fp32: the two paths route alike: {agree}")
-    rec["fp32_cut"] = agree
-    del params
-    free_card()
+    rec["fp32_cut"] = fp32_cut_check(
+        dataclasses.replace(cfg, num_layers=MIXTRAL_CHECK_LAYERS, compute_dtype="float32"), prompt, 6144 + 8,
+        "prefill 1x6144 past the window + 4 decode steps over the wrapped ring")
 
     t0 = time.perf_counter()
     params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
@@ -947,7 +1161,7 @@ def serve_mixtral_cut(card: str) -> dict:
     check(rec["params"] == M.count_params_exact(cfg), "mixtral cut: parameter count")
     print(f"init mixtral-8x22b cut to {MIXTRAL_LAYERS} layers ({rec['params']} params, bf16, "
           f"{rec['params'] * 2 / 1e9:.1f} GB): {rec['init_s']:.1f} s")
-    rec["serve"] = moe_serve(cfg, params, [2048, 4096, 6144, 8192], 8225, 4, card, spy_kernels=True)
+    rec["serve"] = serve_arena(cfg, params, [2048, 4096, 6144, 8192], 8225, 4, card, spy_kernels=True)
     check(rec["serve"]["k2_windows"] == [cfg.sliding_window],
           f"mixtral: every K2 call with window {cfg.sliding_window}: {rec['serve']['k2_windows']}")
     check(rec["serve"]["k1_wrapped_calls"] > 0, "mixtral: K1 ran over a wrapped ring")
@@ -957,6 +1171,258 @@ def serve_mixtral_cut(card: str) -> dict:
     free_card()
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"the mixtral phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def serve_jamba_cut(card: str) -> dict:
+    """jamba-1.5-large-398b at full width, cut to JAMBA_LAYERS layers: (a) the
+    kernel path against the plain path (K3 against :func:`plain_scan`) with
+    the weights in fp32, cut to the first JAMBA_CHECK_LAYERS layers, on two
+    1000-token prompts; (b) bf16, JAMBA_CUT_PARAMS parameters, serving
+    JAMBA_LENS through one arena of batch 8 (K3 = 3 x prefills, K2 =
+    prefills, K1 = decode calls; each prefill's dropped share); (c) a
+    parked row's position, KV and four Mamba tensors left bit for bit by a
+    decode step that advances the other row; (d) the decode step at batch
+    8, eager and as a CUDA graph, beside its byte bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    full = get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(full, num_layers=JAMBA_LAYERS)
+    blocks = [f"{cfg.layer_kind(i)} + {'MoE' if cfg.layer_is_moe(i) else 'dense FFN'}" for i in range(JAMBA_LAYERS)]
+    rec = {"cut": f"num_layers {full.num_layers} -> {JAMBA_LAYERS}; every width as published", "blocks": blocks}
+    print(f"jamba-1.5-large-398b cut: {rec['cut']} ({', '.join(blocks)}; d_model {cfg.d_model}, d_inner "
+          f"{cfg.d_inner}, d_state {cfg.d_state}, {cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} "
+          f"experts top-{cfg.experts_per_token}, d_ff {cfg.ffn_dim}, group {cfg.moe_group_size})")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 1000), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    rec["fp32_cut"] = fp32_cut_check(
+        dataclasses.replace(cfg, num_layers=JAMBA_CHECK_LAYERS, compute_dtype="float32"), prompt, 1008,
+        "prefill 2x1000 + 4 decode steps; K3 against the plain scan summed in fp64")
+
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rec["params"], rec["init_s"] = sum(t.numel() for t in leaves(params)), time.perf_counter() - t0
+    check(rec["params"] == M.count_params_exact(cfg) == JAMBA_CUT_PARAMS,
+          f"jamba cut: {rec['params']} params, count_params_exact {M.count_params_exact(cfg)}, {JAMBA_CUT_PARAMS}")
+    print(f"init jamba-1.5-large-398b cut to {JAMBA_LAYERS} layers ({rec['params']} params = count_params_exact, "
+          f"bf16, {rec['params'] * 2 / 1e9:.1f} GB): {rec['init_s']:.1f} s")
+    rec["serve"] = serve_arena(cfg, params, JAMBA_LENS, JAMBA_MAX_LEN, 8, card)
+    sv = rec["serve"]
+    print(f"jamba: {sv['k3_per_prefill']:g} K3, {sv['k2_per_prefill']:g} K2 per prefill, {sv['k1_per_decode_call']:g} "
+          f"K1 per decode call ({card})")
+
+    # (c) a parked row: two 300-token prompts, one decode step with row 1 parked
+    run = RunConfig(remat="none", attention_impl="pallas", decode_attention_impl="kernel")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    _, cache = M.prefill(cfg, run, params, torch.randint(0, cfg.vocab_size, (2, 300), generator=gen, device=dev), 320)
+
+    def row(i):
+        return [cache["pos"][i], cache["k"][:, i], cache["v"][:, i]] + [t[:, i] for t in cache["mamba"].values()]
+
+    before, row0 = [t.clone() for t in row(1)], [t.clone() for t in row(0)]
+    tok = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen, device=dev)
+    M.decode_step(cfg, run, params, cache, tok, active=torch.tensor([True, False], device=dev))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(row(1), before)),
+          "jamba: a parked row's position, KV and Mamba state (conv_x, conv_b, conv_c, ssm) are untouched")
+    check(not any(torch.equal(a, b) for a, b in zip(row(0)[3:], row0[3:])), "jamba: the active row's Mamba state moved")
+    rec["parked_row_bit_identical"] = True
+    print("jamba parked row: position, KV and the four Mamba tensors bit-identical; the active row's moved")
+    del cache
+
+    # (d) the decode step at batch 8 (a fresh arena at position 4096)
+    rec["step"] = decode_step_bound(cfg, params, JAMBA_MAX_LEN, 4096, card)
+    del params
+    free_card()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"the jamba phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def serve_frontend(arch: str, lens, batch: int, max_len: int, card: str) -> dict:
+    """``arch`` (musicgen-medium or llava-next-34b) at full width: (a) the
+    kernel path against the plain path with the weights in fp32, cut to the
+    first FRONTEND_CHECK_LAYERS layers, on PREFIX_LEN seeded prefix features
+    before a 256-token prompt, then 4 decode steps; (b) bf16, its parameter
+    count equal to ``count_params_exact``, serving ``lens`` through one arena
+    of ``batch`` on tokens alone, as the serving loop takes them; (c) a
+    prefill of PREFIX_LEN seeded bf16 features (128-dim audio frames or
+    1152-dim vision patches) before a FRONTEND_PROMPT-token prompt: every K2
+    call at Sq = PREFIX_LEN + FRONTEND_PROMPT; then 4 decode steps through
+    K1 from that cache, the logits finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    feat = M.FRONTEND_FEATURE_DIM[cfg.frontend]
+    rec = {"frontend": cfg.frontend, "feature_dim": feat}
+    print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; frontend {cfg.frontend} ({feat}-dim features)")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen, device=dev)
+    prefix = torch.randn(2, PREFIX_LEN, feat, generator=gen, device=dev)
+    rec["fp32_cut"] = fp32_cut_check(
+        dataclasses.replace(cfg, num_layers=FRONTEND_CHECK_LAYERS, compute_dtype="float32"), prompt,
+        PREFIX_LEN + 256 + 8, f"prefill of {PREFIX_LEN} prefix features + 2x256 tokens + 4 decode steps",
+        prefix=prefix)
+
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rec["params"], rec["init_s"] = sum(t.numel() for t in leaves(params)), time.perf_counter() - t0
+    check(rec["params"] == M.count_params_exact(cfg), f"{arch}: parameter count")
+    print(f"init {arch} ({rec['params']} params = count_params_exact, bf16, {rec['params'] * 2 / 1e9:.1f} GB): "
+          f"{rec['init_s']:.1f} s")
+    rec["serve"] = serve_arena(cfg, params, lens, max_len, batch, card)
+
+    # (c) the prefix prefill, then decode steps on its cache
+    run = RunConfig(remat="none", attention_impl="pallas", decode_attention_impl="kernel")
+    tokens = torch.randint(0, cfg.vocab_size, (1, FRONTEND_PROMPT), generator=gen, device=dev)
+    feats = torch.randn(1, PREFIX_LEN, feat, generator=gen, device=dev).to(torch.bfloat16)
+    seen = []
+    flash = ops.flash_attention
+
+    def spy(q, *args, **kwargs):
+        seen.append(q.shape[1])
+        return flash(q, *args, **kwargs)
+
+    seq = PREFIX_LEN + FRONTEND_PROMPT
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(ops, "flash_attention", spy):
+        logits, cache = M.prefill(cfg, run, params, tokens, seq + 8, prefix_features=feats)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    sound = bool(torch.isfinite(logits).all())
+    for _ in range(4):
+        logits, cache = M.decode_step(cfg, run, params, cache, torch.argmax(logits[:, -1], dim=-1, keepdim=True))
+        sound &= bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    L = cfg.num_layers
+    check(seen == [seq] * L and launches["flash_attention"] == L,
+          f"{arch}: every K2 call of the prefix prefill at Sq = {PREFIX_LEN} + {FRONTEND_PROMPT}: {sorted(set(seen))}")
+    check(launches["decode_attention"] == 4 * L and int(cache["pos"][0]) == seq + 4 and sound,
+          f"{arch}: 4 decode steps after the prefix prefill, finite logits: {launches}, pos {cache['pos'].tolist()}")
+    rec["prefix_prefill"] = {"k2_sq": seq, "k2_calls": launches["flash_attention"], "prefill_s": prefill_s,
+                             "k1_calls": launches["decode_attention"], "logits_finite": sound}
+    print(f"{arch} prefix prefill ({PREFIX_LEN} {cfg.frontend} + {FRONTEND_PROMPT} tokens, bf16): {L} K2 calls at "
+          f"Sq {seq}, {prefill_s * 1e3:.1f} ms on the host clock; 4 decode steps, {launches['decode_attention']} K1 "
+          f"calls, logits finite ({card})")
+    del params, cache, logits
+    free_card()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"the {arch} phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def mamba_scan_inputs(gen, B: int, S: int, dtype):
+    """K3's inputs in the model layout as the Mamba-2 block builds them at
+    jamba's width (``K3_MAMBA_SHAPE``: 128 heads of P = 128, N = 64), on
+    ``gen``'s device: x in the compute dtype; dt = softplus(u + dt_bias),
+    dt_bias in [-4, -1]; loga = -dt A per head, A in [1, e^1.3] (down to
+    about -11 a step); b = B_t dt rounded to the compute dtype; c = C_t, the
+    same for every head (a broadcast view, as the block hands it)."""
+    H, P, N = K3_MAMBA_SHAPE
+    dev = gen.device
+    x = torch.randn(B, S, H, P, generator=gen, device=dev).to(dtype)
+    bias = torch.rand(H, generator=gen, device=dev) * 3 - 4
+    a = torch.exp(torch.rand(H, generator=gen, device=dev) * 1.3)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device=dev) + bias)
+    b = (torch.randn(B, S, 1, N, generator=gen, device=dev) * dt[..., None]).to(dtype)
+    c = torch.randn(B, S, 1, N, generator=gen, device=dev).to(dtype).expand(B, S, H, N)
+    return x, dt * -a, b, c
+
+
+def k3_mamba(gen, card: str) -> dict:
+    """K3 at the Mamba-2 layout of jamba (:func:`mamba_scan_inputs`, folded)
+    against :func:`k3_exact`, bf16 and fp32, over one prompt of 1000 tokens
+    (pads to 1024) and one of 4096: h against each element's own scale
+    (K3_TOL), y against the magnitude of the terms it sums (K3_TERMS_TOL,
+    as phase 5's "loga ~ -5" case: at Mamba's decays, down to e^-11 a step,
+    a row of y is nearly c_t . b_t times x_t and cancels with that dot
+    product, so its own scale falls up to ~5000 times below the terms;
+    scripts/k3_precision.py), its scaled error reported; then, at two
+    1000-token prompts in bf16, :func:`k3_bit_checks` with each prompt's
+    rows called alone; and timed at the 4096-token prefill (bf16): the
+    kernel on inputs folded in advance, beside its bound and the plain
+    version, and ``ops.ssm_scan`` on the block's own inputs, which is what
+    one Mamba layer of a jamba prefill pays (fold's padding, transposes and
+    copies of the broadcast c, the kernel, unfold)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain
+
+    t_phase = time.perf_counter()
+    H, P, N = K3_MAMBA_SHAPE
+    rec = {"err": {}, "fail": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in K3_MAMBA_SEQS:
+            f = fold(*mamba_scan_inputs(gen, 1, S, dtype), 256)
+            y, h = ssm_scan_cuda(*f, 256)
+            ye, he = k3_exact(*f, 256)
+            torch.cuda.synchronize()
+            ty, sy, sh = terms_err(y, ye, k3_terms(*f, 256)), scaled_err(y, ye), scaled_err(h, he)
+            rec["err"][f"{dtype}, S {S}"] = {"y_over_terms": ty, "h": sh, "y_scaled": sy}
+            print(f"K3 vs plain at the Mamba shape (x {tuple(f[0].shape)}, b, c {tuple(f[2].shape)}, c shared by "
+                  f"the heads) {dtype}, S {S}: y over the terms {ty:.3e} (tol {K3_TERMS_TOL[dtype]:.0e}), scaled "
+                  f"err y {sy:.3e}, h {sh:.3e} (tol {K3_TOL[torch.float32]:.0e})")
+            if not (ty <= K3_TERMS_TOL[dtype] and sh <= K3_TOL[torch.float32]):
+                rec["fail"].append(f"{dtype}, S {S}")
+            del f, y, h, ye, he
+    check(not rec["fail"], f"K3 vs plain at the Mamba shape: {rec['fail']}")
+    f = fold(*mamba_scan_inputs(gen, 2, K3_MAMBA_SEQS[0], torch.bfloat16), 256)
+    rec["bits"] = k3_bit_checks(f, H)
+    print(f"K3 at the Mamba shape, two prompts (x {tuple(f[0].shape)}), bit for bit: {rec['bits']}")
+    check(all(rec["bits"].values()), f"K3 bits at the Mamba shape: {rec['bits']}")
+    del f
+
+    # timed at one 4096-token prefill, bf16. The bound: the bytes the
+    # function must move (x, loga, b per head, c once per token, as the
+    # block has them; y and h written once) and its operations (C B^T and
+    # W X on the causal half, C h and the state update in full) at the bf16
+    # peak. The kernel is handed c folded, one copy per head: those bytes
+    # are reported beside it, not counted in the bound.
+    S, L = K3_MAMBA_SEQS[-1], 256
+    x, loga, b, c = mamba_scan_inputs(gen, 1, S, torch.bfloat16)
+    f = fold(x, loga, b, c, L)
+    bh = f[0].shape[0]
+    c_token = c.shape[0] * S * N * c.element_size()
+    nbytes = sum(t.numel() * t.element_size() for t in (x, loga, b)) + c_token \
+        + x.numel() * x.element_size() + bh * N * P * 4
+    tri = L * (L + 1) // 2
+    flops = bh * (S // L) * (2 * tri * N + 2 * tri * P + 4 * L * N * P)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    launches = ops.LAUNCHES["ssm_scan"]
+    rec["times"] = {"shape": f"x {tuple(f[0].shape)} bf16, loga fp32, b, c {tuple(f[2].shape)} bf16; chunk 256",
+                    "ms": graph_ms(lambda: ssm_scan_cuda(*f, 256), iters=5),
+                    "eager_ms": timed_ms(lambda: ssm_scan_cuda(*f, 256), iters=5),
+                    "with_fold_ms": graph_ms(lambda: ops.ssm_scan(x, loga, b, c, L), iters=5),
+                    "with_fold_eager_ms": timed_ms(lambda: ops.ssm_scan(x, loga, b, c, L), iters=5),
+                    "plain_ms": timed_ms(lambda: ssm_scan_plain(*f, 256), iters=3), "library_ms": None,
+                    "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bytes": nbytes, "c_per_head_bytes": f[3].numel() * f[3].element_size(), "flops": flops,
+                    "tf32_split_floor_ms": 2 * flops / TF32_FLOPS * 1e3}
+    ops.LAUNCHES["ssm_scan"] = launches  # the timing's calls are no path's launches
+    t = rec["times"]
+    print(f"K3 at the Mamba shape ({t['shape']}): {t['ms']:.5f} ms device (graph replay), eager {t['eager_ms']:.5f} "
+          f"ms, bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({nbytes / 1e6:.1f} MB with c once per token; c "
+          f"folded per head is {t['c_per_head_bytes'] / 1e6:.1f} MB; {flops / 1e9:.2f} GFLOP; split TF32 floor "
+          f"{t['tf32_split_floor_ms']:.5f} ms), plain {t['plain_ms']:.4f} ms; ops.ssm_scan on the block's inputs "
+          f"(fold, kernel, unfold: one Mamba layer of a 4096-token prefill) {t['with_fold_ms']:.5f} ms device, "
+          f"{t['with_fold_eager_ms']:.5f} ms eager ({card})")
+    del x, loga, b, c, f
+    free_card()
+    rec["phase_s"] = time.perf_counter() - t_phase
     return rec
 
 
@@ -975,7 +1441,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.decode_attention import SPLIT_KEYS, decode_attention_cuda, decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
-    from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain, unfold
+    from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain
     from repro_torch.launch.serve import Request, ServeLoop
     from repro_torch.models import model as M
     from repro_torch.models import ssm
@@ -1020,25 +1486,25 @@ def main(argv=None) -> int:
 
     # -- 3. K1 vs plain ---------------------------------------------------
     B, H, KH, D = 8, 16, 8, 128
-    k1_err = {}
+    k1_err, k1_scaled = {}, {}
     rows = [0, 1, 3, 4, 5, 6, 7]  # all but the all-invalid row 2
     k1_invariant = []
 
     def held(got, exp, idx, normalize, tol, what):
-        """The largest error of a normalised K1 call over rows idx, or, for
-        partials, a check of each against its scale (acc and l grow with the
-        number of valid keys; the all-invalid row's m = -1e30 is checked
-        apart)."""
+        """The largest absolute and scaled error of a normalised K1 call
+        over rows idx, or, for partials, a check of each against its scale
+        (acc and l grow with the number of valid keys; the all-invalid row's
+        m = -1e30 is checked apart) and (0, 0)."""
         if normalize:
-            return err(got[0], exp[0])
+            return err(got[0], exp[0]), scaled_err(got[0], exp[0])
         keep = [i for i, r in enumerate(idx) if r in rows]
         for a, b in zip(got, exp):
             rel = err(a[keep], b[keep]) / max(1.0, float(b[keep].abs().max()))
             check(rel < tol, f"K1 partials vs plain {what}: {rel} >= {tol}")
-        return 0.0
+        return 0.0, 0.0
 
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
-        worst = 0.0
+        worst = scaled = 0.0
         # the path's cache length and one past it, the entry point's cache
         # (prompt 256 + 32 new tokens + 1), then the split boundaries
         for S in (2048, 2050, 289, 100, SPLIT_KEYS - 1, SPLIT_KEYS, SPLIT_KEYS + 1):
@@ -1058,7 +1524,8 @@ def main(argv=None) -> int:
                 check(float(got[0][2].abs().max()) == 0.0 and float(got[2][2].max()) == 0.0
                       and torch.equal(got[1][2], exp[1][2]),
                       f"K1 all-invalid row is exactly zero, m = -1e30 ({dtype}, S={S})")
-                worst = max(worst, held(got, exp, range(B), normalize, tol, f"{dtype}, S={S}, B=8"))
+                ae, se = held(got, exp, range(B), normalize, tol, f"{dtype}, S={S}, B=8")
+                worst, scaled = max(worst, ae), max(scaled, se)
                 # each row alone gives the same bits as in the batch
                 alone = [decode_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1], valid[i:i + 1],
                                                scale=D**-0.5, normalize=normalize)
@@ -1075,7 +1542,8 @@ def main(argv=None) -> int:
                     got2 = decode_attention_cuda(*pair, scale=D**-0.5, normalize=normalize)
                     exp2 = decode_attention_plain(*pair, scale=D**-0.5, normalize=normalize)
                     torch.cuda.synchronize()
-                    worst = max(worst, held(got2, exp2, range(i, i + 2), normalize, tol, f"{dtype}, S={S}, B=2"))
+                    ae, se = held(got2, exp2, range(i, i + 2), normalize, tol, f"{dtype}, S={S}, B=2")
+                    worst, scaled = max(worst, ae), max(scaled, se)
                     if alone:
                         check(all(torch.equal(a[j:j + 1], b)
                                   for j in range(2) for a, b in zip(got2, alone[i + j])),
@@ -1091,18 +1559,21 @@ def main(argv=None) -> int:
             combined = ops.combine_decode_partials(*zip(*parts))
             whole = decode_attention_plain(q, k, v, valid, scale=D**-0.5)[0]
             worst = max(worst, err(combined[rows], whole[rows]))
+            scaled = max(scaled, scaled_err(combined[rows], whole[rows]))
+        stol = ATTN_SCALED_TOL[torch.float32]  # K1's output is fp32 whatever its inputs' type
         check(worst < tol, f"K1 vs plain {dtype}: {worst} >= {tol}")
-        k1_err[str(dtype)] = worst
-        print(f"K1 vs plain {dtype}: max abs err {worst:.3e} (tol {tol})")
+        check(scaled <= stol, f"K1 vs plain {dtype}: scaled err {scaled} > {stol}")
+        k1_err[str(dtype)], k1_scaled[str(dtype)] = worst, scaled
+        print(f"K1 vs plain {dtype}: max abs err {worst:.3e} (tol {tol}), scaled err {scaled:.3e} (tol {stol:.0e})")
     print(f"K1 batch invariance: every row of a batch-8 or batch-2 call bit-identical to the row alone "
           f"({k1_invariant})")
     record["k1_batch_invariant"] = k1_invariant
     lap("3. K1 vs plain")
 
     # -- 4. K2 vs plain ---------------------------------------------------
-    k2_err = {}
+    k2_err, k2_scaled = {}, {}
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
-        worst = 0.0
+        worst = scaled = 0.0
         # causal prefill; Sq not a multiple of the 64-row q tile; then a
         # window with a query offset: rows late in a 64-row q tile find the
         # tile's first visited 64-key tile fully masked
@@ -1113,16 +1584,18 @@ def main(argv=None) -> int:
             got = flash_attention_cuda(q, k, v, q_offset=off, window=win, scale=D**-0.5)
             exp = flash_attention_plain(q, k, v, q_offset=off, window=win, scale=D**-0.5)
             torch.cuda.synchronize()
-            worst = max(worst, err(got, exp))
+            worst, scaled = max(worst, err(got, exp)), max(scaled, scaled_err(got, exp))
         check(worst < tol, f"K2 vs plain {dtype}: {worst} >= {tol}")
-        k2_err[str(dtype)] = worst
-        print(f"K2 vs plain {dtype}: max abs err {worst:.3e} (tol {tol})")
+        check(scaled <= ATTN_SCALED_TOL[dtype], f"K2 vs plain {dtype}: scaled err {scaled} > {ATTN_SCALED_TOL[dtype]}")
+        k2_err[str(dtype)], k2_scaled[str(dtype)] = worst, scaled
+        print(f"K2 vs plain {dtype}: max abs err {worst:.3e} (tol {tol}), scaled err {scaled:.3e} "
+              f"(tol {ATTN_SCALED_TOL[dtype]:.0e})")
 
     lap("4. K2 vs plain")
     # the head groupings of the dense and MoE archs (K1 and K2)
     grp = groupings(rnd, gen, card)
     record["groupings"] = grp
-    lap("3-4. K1, K2 at G = 1, 6, 16")
+    lap("3-4. K1, K2 at G = 1, 6, 16, 8, 7 and head_dim 64")
 
     # -- 5. K3 vs plain ---------------------------------------------------
     def k3_inputs(B, S, H, P, N, dtype, loga="gate", b_dtype=torch.float32, gate_sd=1.0):
@@ -1139,30 +1612,6 @@ def main(argv=None) -> int:
         noise = torch.randn(B, S, H, generator=gen, device=dev)
         la = {"gate": F.logsigmoid(3 + noise), "zero": torch.zeros_like(noise), "neg5": -5 + 0.1 * noise}[loga]
         return x, la, b, c
-
-    def scaled_err(a, b):
-        """Largest |a - b| / (|b| + the largest |b| of its row), a row being
-        the last axis: one time step's P values of y, one state row of h,
-        one token's features. Each element is held to its own scale, so a
-        few huge gates cannot hide the error of the elements around them;
-        where the scale is 0 the two must be equal."""
-        a, b = a.float(), b.float()
-        scale = b.abs() + b.abs().amax(dim=-1, keepdim=True)
-        return float(((a - b).abs() / scale.clamp_min(1e-30)).max())
-
-    def terms_err(a, b, terms):
-        """Largest |a - b| over the magnitude of the terms each element of b
-        sums (fp64)."""
-        return float(((a.double() - b.double()).abs() / terms.clamp_min(1e-300)).max())
-
-    def k3_exact(x, loga, b, c, chunk):
-        """K3's reference: the plain version on the same inputs widened to
-        fp64, so that it sums in fp64 (summed in fp32 it is itself up to
-        5e-5 of an element's scale from the exact result at input gates
-        near e^10, scripts/k3_precision.py); y rounded to x's dtype, as the
-        kernel rounds it, and h in fp32."""
-        y, h = ssm_scan_plain(*(t.double() for t in (x, loga, b, c)), chunk)
-        return y.to(x.dtype), h.float()
 
     K3_PATH = (1, 1024, 4, 513, 512)  # one 1024-token prompt: B, S, H, P = head_dim + 1, N = head_dim
     k3_cases = [  # (name, (B, S, H, P, N), loga, b dtype or None for fp32, sd of the log input gate)
@@ -1188,9 +1637,7 @@ def main(argv=None) -> int:
             ty, th = K3_TOL[dtype], K3_TOL[torch.float32]
             held_y = f"scaled err y {sy:.3e} (tol {ty:.3e})"
             if loga == "neg5":  # y against the terms it sums (K3_TERMS_TOL)
-                terms, _ = ssm_scan_plain(f[0].double().abs(), f[1].double(), f[2].double().abs(),
-                                          f[3].double().abs(), 256)
-                sy_terms, ty = terms_err(y, ye, terms), K3_TERMS_TOL[dtype]
+                sy_terms, ty = terms_err(y, ye, k3_terms(*f, 256)), K3_TERMS_TOL[dtype]
                 held_y = f"y over the terms {sy_terms:.3e} (tol {ty:.3e}), scaled err y {sy:.3e}"
                 sy_held = sy_terms
             else:
@@ -1218,36 +1665,26 @@ def main(argv=None) -> int:
     k3_bits = {}
     for dtype in (torch.bfloat16, torch.float32):
         f = fold(*k3_inputs(*K3_PATH, dtype=dtype), 256)
-        y1, h1 = ssm_scan_cuda(*f, 256)
-        y2, h2 = ssm_scan_cuda(*f, 256)
-        alone = [ssm_scan_cuda(*(t[i:i + 1].clone() for t in f), 256) for i in range(f[0].shape[0])]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            ssm_scan_cuda(*f, 256)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            yg, hg = ssm_scan_cuda(*f, 256)
-        graph.replay()
-        torch.cuda.synchronize()
-        k3_bits[str(dtype)] = {
-            "two_calls": torch.equal(y1, y2) and torch.equal(h1, h2),
-            "rows_alone": all(torch.equal(y1[i:i + 1], y) and torch.equal(h1[i:i + 1], h) for i, (y, h) in enumerate(alone)),
-            "graph_replay": torch.equal(yg, y1) and torch.equal(hg, h1),
-        }
-        del graph
+        k3_bits[str(dtype)] = k3_bit_checks(f, 1)
     print(f"K3 at the prefill shape {tuple(f[0].shape)}, bit for bit: {k3_bits}")
     check(all(all(v.values()) for v in k3_bits.values()), f"K3 bits: {k3_bits}")
     record["k3_bits"] = k3_bits
 
     lap("5. K3 vs plain")
+    record["k3_mamba"] = k3_mamba(gen, card)
+    lap("5. K3 at the Mamba shape")
 
-    # -- 12, 13. the MoE serves, first: each needs the card to itself ----
+    # -- 12-16. the large serves, first: each needs the card to itself ----
     record["moonshot"] = serve_moonshot(card)
     lap("12. moonshot-v1-16b-a3b")
     record["mixtral"] = serve_mixtral_cut(card)
     lap("13. mixtral-8x22b cut")
+    record["jamba"] = serve_jamba_cut(card)
+    lap("14. jamba-1.5-large-398b cut")
+    record["musicgen"] = serve_frontend("musicgen-medium", MUSICGEN_LENS, 8, MUSICGEN_MAX_LEN, card)
+    lap("15. musicgen-medium")
+    record["llava"] = serve_frontend("llava-next-34b", LLAVA_LENS, LLAVA_BATCH, LLAVA_MAX_LEN, card)
+    lap("16. llava-next-34b")
 
     # -- 6. serve qwen3-1.7b at full width ---------------------------------
     cfg = get_config("qwen3-1.7b")
@@ -1342,10 +1779,6 @@ def main(argv=None) -> int:
     lap("9. xlstm-1.3b serve")
 
     # -- 10. xlstm: the first mLSTM block; logits; a parked row -------------
-    def plain_scan(x, loga, b, c, chunk=256):
-        y, h = k3_exact(*fold(x, loga, b, c, chunk), chunk)
-        return unfold(y, h, x.shape[0], x.shape[1], x.shape[-1], b.shape[-1])
-
     xprompt = torch.as_tensor(np.stack([xcorpus.grain_tokens(100 + i, 1)[0][:300] for i in range(2)]),
                               dtype=torch.long, device=dev)
     # The first mLSTM block of the bf16 serve model on the embeddings of two
@@ -1502,23 +1935,42 @@ def main(argv=None) -> int:
         kernels[-1]["kernel_ms"] = kernels[-1]["ms"]
         check(launches_n > 0, f"{name} was not launched on the main path")
     # every serve path's own run, its counts set to 0 just before it; and the
-    # head groupings of the dense and MoE archs, timed at their serves' shapes
-    moon, mix = record["moonshot"]["serve"]["launches"], record["mixtral"]["serve"]["launches"]
+    # head groupings of the dense, MoE, hybrid and frontend archs, timed at
+    # their serves' shapes
+    serves = {"moonshot-v1-16b-a3b": record["moonshot"]["serve"],
+              f"mixtral-8x22b ({record['mixtral']['serve']['layers']} layers)": record["mixtral"]["serve"],
+              f"jamba-1.5-large-398b ({record['jamba']['serve']['layers']} layers)": record["jamba"]["serve"],
+              "musicgen-medium": record["musicgen"]["serve"], "llava-next-34b": record["llava"]["serve"]}
     for kern, key in ((kernels[0], "decode_attention"), (kernels[1], "flash_attention")):
-        kern["launches_by_path"] = {"qwen3-1.7b serve": launches[key], "moonshot-v1-16b-a3b serve": moon[key],
-                                    f"mixtral-8x22b ({record['mixtral']['serve']['layers']} layers) serve": mix[key]}
+        kern["launches_by_path"] = {"qwen3-1.7b serve": launches[key],
+                                    **{f"{name} serve": sv["launches"][key] for name, sv in serves.items()}}
         check(all(n > 0 for n in kern["launches_by_path"].values()), f"{kern['name']} launched on every path")
         times = grp["k1_times" if key == "decode_attention" else "k2_times"]
-        kern["groupings"] = [{k: t[k] for k in ("G", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-                             for t in times]
+        kern["groupings"] = [{k: t[k] for k in ("G", "head_dim", "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                "bound_by")} for t in times]
         kern["max_abs_err"] = max(kern["max_abs_err"],
                                   *grp["k1_err" if key == "decode_attention" else "k2_err"].values())
-    ms, xs = record["moonshot"]["serve"], record["mixtral"]["serve"]
-    kernels[0]["launches_per_step"] += (f"; {ms['k1_per_decode_call']:g} per decode step (moonshot-v1-16b-a3b), "
-                                        f"{xs['k1_per_decode_call']:g} (mixtral cut)")
-    kernels[1]["launches_per_step"] += (f"; {ms['k2_per_prefill']:g} per prefill (moonshot-v1-16b-a3b), "
-                                        f"{xs['k2_per_prefill']:g} (mixtral cut)")
-    kernels[2]["launches_by_path"] = {"xlstm-1.3b serve": xlaunches["ssm_scan"]}
+        # each element against its own scale, phases 3-4 and the groupings
+        # (K1's output is fp32 whatever its inputs' type)
+        scaled_cases = [*(k1_scaled if key == "decode_attention" else k2_scaled).items(),
+                        *grp["k1_scaled" if key == "decode_attention" else "k2_scaled"].items()]
+        kern["max_scaled_err_by_dtype"] = {str(dt): max(v for k, v in scaled_cases if k.endswith(str(dt)))
+                                           for dt in (torch.bfloat16, torch.float32)}
+        kern["scaled_tol"] = {str(dt): ATTN_SCALED_TOL[torch.float32 if key == "decode_attention" else dt]
+                              for dt in (torch.bfloat16, torch.float32)}
+    kernels[0]["launches_per_step"] += "".join(f"; {sv['k1_per_decode_call']:g} per decode step ({name})"
+                                               for name, sv in serves.items())
+    kernels[1]["launches_per_step"] += "".join(f"; {sv['k2_per_prefill']:g} per prefill ({name})"
+                                               for name, sv in serves.items())
+    jamba_name = f"jamba-1.5-large-398b ({record['jamba']['serve']['layers']} layers)"
+    kernels[2]["launches_by_path"] = {"xlstm-1.3b serve": xlaunches["ssm_scan"],
+                                      f"{jamba_name} serve": serves[jamba_name]["launches"]["ssm_scan"]}
+    check(all(n > 0 for n in kernels[2]["launches_by_path"].values()), "ssd_scan launched on every path")
+    kernels[2]["launches_per_step"] += f"; {serves[jamba_name]['k3_per_prefill']:g} per prefill ({jamba_name})"
+    kernels[2]["mamba_shape"] = {k: record["k3_mamba"]["times"][k]
+                                 for k in ("shape", "ms", "with_fold_ms", "plain_ms", "library_ms", "bound_ms",
+                                           "bound_by")}
+    kernels[2]["max_terms_err_mamba_shape"] = max(e["y_over_terms"] for e in record["k3_mamba"]["err"].values())
     kernels[0]["achieved_tb_per_s"] = k1_bytes / kernels[0]["ms"] / 1e9
     kernels[1]["achieved_tflop_per_s"] = k2_flops / kernels[1]["ms"] / 1e9
     # K2 and SDPA where blocks are plenty (B 8, Sq = Sk = 2048): the kernel's

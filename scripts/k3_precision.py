@@ -24,6 +24,9 @@ a decay of e^-5 a step, an output row is nearly the one product c_t . b_t
 times x_t, so where that product cancels the row's scale falls far below
 the terms the kernel sums. It also prints the error over the terms'
 magnitude, which arithmetic that rounds in fp32 keeps near 2^-24 or below.
+Last, the same at the Mamba-2 layout of jamba-1.5-large-398b (128 heads of
+P = 128, N = 64, c shared by the heads, a 4096-token prompt, 10 seeds),
+whose decay reaches e^-11 a step.
 
 Run from the repository root on a machine with an H100:
 ``python3 scripts/k3_precision.py``.
@@ -36,11 +39,12 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from chip_smoke import mamba_scan_inputs  # noqa: E402
 from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain  # noqa: E402
 
 
@@ -83,6 +87,32 @@ def neg5(card: str) -> None:
                   f"largest terms / scale {float((terms / scale).max()):.1f} ({card})", flush=True)
 
 
+def mamba(card: str) -> None:
+    """K3 at jamba's Mamba-2 layout over 10 seeds (see the module's
+    docstring): x (1, 4096, 128, 128), b and c (1, 4096, 128, 64) as
+    ``chip_smoke.mamba_scan_inputs`` builds them (c the same for every
+    head, loga down to about -11 a step); the same errors as ``neg5``."""
+    S, L = 4096, 256
+    for dtype in (torch.bfloat16, torch.float32):
+        for seed in range(10):
+            f = fold(*mamba_scan_inputs(torch.Generator(device="cuda").manual_seed(seed), 1, S, dtype), L)
+            y, _ = ssm_scan_cuda(*f, L)
+            y32, _ = ssm_scan_plain(*f, L)
+            ye, _ = ssm_scan_plain(*(t.double() for t in f), L)
+            terms, _ = ssm_scan_plain(f[0].double().abs(), f[1].double(), f[2].double().abs(),
+                                      f[3].double().abs(), L)
+            scale = ye.abs() + ye.abs().amax(dim=-1, keepdim=True)
+            ye = ye.to(dtype).double()
+            e, e32 = (y.double() - ye).abs(), (y32.double() - ye).abs()
+            at = int((e / scale.clamp_min(1e-300)).argmax())
+            print(f"Mamba shape {str(dtype)[6:]} seed {seed}: kernel y {float((e / scale).max()):.3e}, fp32 y "
+                  f"{float((e32 / scale).max()):.3e} of the scale; at the kernel's worst element the terms are "
+                  f"{float(terms.flatten()[at] / scale.flatten()[at]):.1f} x its scale; over the terms: kernel "
+                  f"{float((e / terms.clamp_min(1e-300)).max()):.3e}, fp32 {float((e32 / terms.clamp_min(1e-300)).max()):.3e}; "
+                  f"largest terms / scale {float((terms / scale).max()):.1f} ({card})", flush=True)
+            del f, y, y32, ye, terms, scale, e, e32
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("k3_precision: no CUDA device", file=sys.stderr)
@@ -114,6 +144,7 @@ def main() -> int:
                       f"h {scaled_err(h, he):.3e}; fp32 y {scaled_err(y32, ye):.3e} "
                       f"h {scaled_err(h32, he):.3e} ({card})", flush=True)
     neg5(card)
+    mamba(card)
     return 0
 
 

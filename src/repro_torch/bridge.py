@@ -6,8 +6,10 @@ are kept as they are (``wq (D, H, hd)``, ``wk``/``wv (D, KH, hd)``,
 ``wo (H, hd, D)``, MLP ``gate``/``up (D, F)``, ``down (F, D)``); the only
 change is that the JAX package stacks every layer parameter under a
 leading ``num_periods`` axis per period slot ``b{j}``, and the port keeps
-one dict per layer, layer ``i = n * period + j``. Caches go the other
-way: the port stacks each kind of state over the layers of that kind.
+one dict per layer, layer ``i = n * period + j``; the other entries
+(``embed``, ``lm_head``, ``final_norm``, a frontend's ``{"proj": ...}``)
+come across as they are. Caches go the other way: the port stacks each
+kind of state over the layers of that kind.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu", dtype=None) -> d
     for i in range(cfg.num_layers):
         n, j = divmod(i, p)
         layers.append(_map(tree["layers"][f"b{j}"], lambda a, n=n: _tensor(np.asarray(a)[n], device, dtype)))
-    out = {k: _tensor(v, device, dtype) for k, v in tree.items() if k != "layers" and not isinstance(v, dict)}
+    out = {k: _map(v, lambda a: _tensor(a, device, dtype)) for k, v in tree.items() if k != "layers"}
     out["layers"] = layers
     return out
 
@@ -55,8 +57,10 @@ def cache_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
     """A JAX decode cache ``{"pos", "layers": {"b{j}": {kind: ...}}}``
     (numpy leaves) as the port's cache (``models/model.py::init_cache``):
     ``{"pos", "k", "v"}`` for attention, ``{"pos", "mlstm", "slstm": {"h",
-    "c", "n", "m"}}`` for xLSTM, each kind stacked over its layers. The JAX
-    sLSTM state is the tuple ``(h, c, n, m)``."""
+    "c", "n", "m"}}`` for xLSTM, ``"mamba": {"conv_x", "conv_b", "conv_c",
+    "ssm"}`` for Mamba-2 (beside ``k`` and ``v`` in the hybrid), each kind
+    stacked over its layers. The JAX sLSTM state is the tuple ``(h, c, n,
+    m)``."""
     p = cfg.period
     per_kind: dict[str, list] = {}
     for i in range(cfg.num_layers):
@@ -70,7 +74,7 @@ def cache_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
         elif kind == "slstm":
             leaf = {"slstm": dict(zip(("h", "c", "n", "m"), blk["state"]))}
         else:
-            raise NotImplementedError(f"{kind} caches are not ported to repro_torch yet")
+            leaf = {"mamba": {k: blk[k] for k in ("conv_x", "conv_b", "conv_c", "ssm")}}
         per_kind.setdefault(kind, []).append(_map(leaf, lambda a, n=n: _tensor(np.asarray(a)[n], device, None)))
     out = {"pos": torch.from_numpy(np.asarray(tree["pos"]).astype(np.int64)).to(device)}
     for layers in per_kind.values():

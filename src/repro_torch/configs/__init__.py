@@ -1,12 +1,12 @@
 """Architecture registry of the port.
 
-The JAX package knows ten architectures; the port runs the dense attention
-stack (with or without qk-norm, tied or untied head, sliding window), the
-mixture-of-experts FFN on it, and the xLSTM stack (mLSTM + sLSTM), so
-those seven are registered here. The Mamba-2 hybrid and the two modality
-frontends raise a "not ported" error naming the arch. The workload input
-specs of the JAX registry are built from ``jax.ShapeDtypeStruct`` and are
-left out.
+The port registers all ten architectures of the JAX package: the dense
+attention stack (with or without qk-norm, tied or untied head, sliding
+window), the mixture-of-experts FFN on it, the xLSTM stack (mLSTM +
+sLSTM), the Mamba-2 + attention hybrid (jamba) and the two modality
+frontends (llava, musicgen: a linear projection of precomputed features
+before the tokens). The workload input specs of the JAX registry are
+built from ``jax.ShapeDtypeStruct`` and are left out.
 """
 
 from __future__ import annotations
@@ -29,15 +29,10 @@ _ARCH_MODULES = {
     "llama3-405b": "llama3_405b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "mixtral-8x22b": "mixtral_8x22b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "llava-next-34b": "llava_next_34b",
+    "musicgen-medium": "musicgen_medium",
 }
-
-# known to the JAX package, not yet to the port: the Mamba-2 block (jamba)
-# and the modality frontends (llava, musicgen)
-_NOT_PORTED = (
-    "musicgen-medium",
-    "jamba-1.5-large-398b",
-    "llava-next-34b",
-)
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
@@ -45,10 +40,6 @@ ARCH_IDS = tuple(_ARCH_MODULES)
 def get_config(name: str) -> ModelConfig:
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet; ported: {sorted(_ARCH_MODULES)}"
-        )
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")

@@ -39,9 +39,11 @@ multiple of it, as in the JAX package.
 
 On the card the kernel path is the default (``main()`` selects
 ``attention_impl="pallas"``, K2, for prefill and
-``decode_attention_impl="kernel"``, K1, for decode; the xLSTM stack's
-mLSTM prefill always runs K3); the plain versions run only for tensors on
-the CPU. ``ServeLoop(..., device="cuda")`` raises when
+``decode_attention_impl="kernel"``, K1, for decode; the mLSTM and Mamba-2
+prefills always run K3); the plain versions run only for tensors on the
+CPU. The loop serves tokens only, as the JAX package's does: a frontend
+arch (llava, musicgen) is served on its token stream, and a caller that
+has prefix features calls ``models.model.prefill`` with them. ``ServeLoop(..., device="cuda")`` raises when
 no card is present: it never carries on on the CPU.
 
 Usage:
@@ -49,6 +51,7 @@ Usage:
       --requests 16 --batch 4 --prompt-len 32 --gen 16 --mode arena
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b-smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b-smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b-smoke --device cpu
 """
 
 from __future__ import annotations

@@ -1,13 +1,19 @@
 """Model assembly: embedding → layer loop → LM head.
 
-Port of ``repro/models/model.py`` for stacks of attention blocks with a
-dense SwiGLU FFN (qwen3, internlm2, llama3) or a mixture-of-experts FFN
-(moonshot, mixtral: ``models/moe.py``), and for the xLSTM stack (mLSTM
-and sLSTM blocks, no FFN). The JAX package's ``lax.scan`` over block
-periods becomes a Python loop over layers; parameters are a dict with a
-``layers`` list, one dict per layer, in the JAX package's weight layouts
-(``wq (D, H, hd)``, ``wo (H, hd, D)``, experts ``(E, D, F)``). Mamba
-blocks and modality frontends raise "not ported".
+Port of ``repro/models/model.py`` for every architecture of the JAX
+package: stacks of attention blocks with a dense SwiGLU FFN (qwen3,
+internlm2, llama3, llava, musicgen) or a mixture-of-experts FFN (moonshot,
+mixtral: ``models/moe.py``), the xLSTM stack (mLSTM and sLSTM blocks, no
+FFN), and the hybrid of Mamba-2 and attention blocks, each with a dense or
+MoE FFN (jamba). The JAX package's ``lax.scan`` over block periods becomes
+a Python loop over layers; parameters are a dict with a ``layers`` list,
+one dict per layer, in the JAX package's weight layouts (``wq (D, H,
+hd)``, ``wo (H, hd, D)``, experts ``(E, D, F)``). A modality frontend
+(llava's vision patches, musicgen's audio frames) is a linear projection
+``frontend.proj`` of precomputed features, put before the token
+embeddings when ``forward`` or ``prefill`` is given ``prefix_features``;
+the decode step and the serving loop take tokens only, as the JAX
+package's do.
 
 The decode cache holds what the architecture has, each kind stacked over
 its own layers with batch on dim 1, so a serving slot is one
@@ -16,7 +22,11 @@ its own layers with batch on dim 1, so a serving slot is one
 * attention: ``{"pos": (B,) int64, "k": (L, B, cap, KH, hd), "v": ...}``;
 * xLSTM: ``{"pos", "mlstm": (L_m, B, H, hd, hd + 1) fp32, "slstm": {"h",
   "c", "n", "m"}: (L_s, B, d)}`` (``h`` in the compute dtype, the rest
-  fp32, ``m`` starting at -1e30).
+  fp32, ``m`` starting at -1e30);
+* Mamba-2: ``{"mamba": {"conv_x": (L_mb, B, W - 1, d_inner), "conv_b",
+  "conv_c": (L_mb, B, W - 1, N), "ssm": (L_mb, B, H, N, P)}}``: the last
+  W - 1 raw inputs of each causal conv in the compute dtype, the SSM state
+  in fp32; beside the attention layers' ``k`` and ``v``.
 
 ``decode_step`` updates the cache in place; an inactive row keeps its
 position, its KV slots and its recurrent state exactly as they were.
@@ -52,16 +62,8 @@ from repro_torch.models.common import (
     trunc_nrm,
 )
 
-PORTED_KINDS = ("attn", "mlstm", "slstm")
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    for i in range(cfg.num_layers):
-        kind = cfg.layer_kind(i)
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(f"{cfg.name}: {kind} blocks are not ported to repro_torch yet")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported to repro_torch yet")
+FRONTEND_FEATURE_DIM = {"audio_frames": 128, "vision_patches": 1152}
+DEFAULT_PREFIX_LEN = 256
 
 
 @functools.cache
@@ -93,7 +95,8 @@ def _block_defs(cfg: ModelConfig, i: int) -> dict:
         return {"mlstm": ssm.mlstm_defs(cfg)}
     if kind == "slstm":
         return {"slstm": ssm.slstm_defs(cfg)}
-    d = {"norm": norm_def(cfg.d_model), "attn": attn.attn_defs(cfg)}
+    mixer = ssm.mamba_defs(cfg) if kind == "mamba" else attn.attn_defs(cfg)
+    d = {"norm": norm_def(cfg.d_model), kind: mixer}
     if cfg.layer_is_moe(i):
         d["ffn_norm"] = norm_def(cfg.d_model)
         d["moe"] = moe_lib.moe_defs(cfg)
@@ -104,7 +107,6 @@ def _block_defs(cfg: ModelConfig, i: int) -> dict:
 
 
 def model_defs(cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
     defs = {
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), trunc_nrm(0.02)),
         "layers": [_block_defs(cfg, i) for i in range(cfg.num_layers)],
@@ -112,6 +114,8 @@ def model_defs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size), nrm())
+    if cfg.frontend:
+        defs["frontend"] = {"proj": ParamDef((FRONTEND_FEATURE_DIM[cfg.frontend], cfg.d_model), nrm())}
     return defs
 
 
@@ -158,8 +162,15 @@ def _ffn(cfg, blk, h, inference: bool):
     return h, {}
 
 
-def _embed(cfg, params, tokens):
-    return F.embedding(tokens, params["embed"].to(_compute_dtype(cfg)))
+def _embed(cfg, params, tokens, prefix_features=None):
+    """Token embeddings (B, S, D), after the projected ``prefix_features``
+    (B, P, feature dim) where given: (B, P + S, D)."""
+    dt = _compute_dtype(cfg)
+    h = F.embedding(tokens, params["embed"].to(dt))
+    if prefix_features is not None:
+        pf = prefix_features.to(dt) @ params["frontend"]["proj"].to(dt)
+        h = torch.cat([pf, h], dim=1)
+    return h
 
 
 def _head(cfg, params, h):
@@ -182,17 +193,23 @@ def _block_full(cfg, run, blk, kind, h, positions):
     if kind == "slstm":
         return h + ssm.slstm_apply_full(cfg, blk["slstm"], h), {}
     hn = rms_norm(h, blk["norm"], cfg.norm_eps)
-    h = h + attn.attn_apply_full(cfg, run, blk["attn"], hn, positions)
+    if kind == "mamba":
+        h = h + ssm.mamba_apply_full(cfg, blk["mamba"], hn, chunk=run.ssd_chunk)
+    else:
+        h = h + attn.attn_apply_full(cfg, run, blk["attn"], hn, positions)
     return _ffn(cfg, blk, h, inference=False)
 
 
-def forward(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor):
-    """Training/eval forward. tokens: (B, S). Returns (logits, aux).
+def forward(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor,
+            prefix_features: Optional[torch.Tensor] = None):
+    """Training/eval forward. tokens: (B, S), after the frontend's
+    ``prefix_features`` (B, P, feature dim) where given. Returns (logits
+    (B, P + S, V), aux).
 
     ``aux`` holds the MoE metrics as the JAX package reports them: summed
     over the blocks of each period, then averaged over the periods; zeros
     for a stack without MoE."""
-    h = _embed(cfg, params, tokens)
+    h = _embed(cfg, params, tokens, prefix_features)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     periods = [{} for _ in range(cfg.num_periods)]
     for i, (blk, (kind, _)) in enumerate(zip(params["layers"], _kind_index(cfg))):
@@ -208,10 +225,13 @@ def forward(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor
     return _head(cfg, params, h), aux
 
 
-def prefill(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor, max_len: int):
-    """Forward + cache build. Returns (last-position logits (B, 1, V), cache)."""
-    h = _embed(cfg, params, tokens)
-    b, seq = tokens.shape
+def prefill(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor, max_len: int,
+            prefix_features: Optional[torch.Tensor] = None):
+    """Forward + cache build, the frontend's ``prefix_features`` before the
+    tokens where given (the cache then holds P + S positions). Returns
+    (last-position logits (B, 1, V), cache)."""
+    h = _embed(cfg, params, tokens, prefix_features)
+    b, seq = h.shape[:2]
     positions = torch.arange(seq, device=h.device)[None, :]
     cache = init_cache(cfg, b, max_len, h.device)
     cache["pos"].fill_(seq)
@@ -225,6 +245,12 @@ def prefill(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor
             for key, t in state.items():
                 cache["slstm"][key][j].copy_(t)
             h = h + y
+        elif kind == "mamba":
+            hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+            y, state = ssm.mamba_apply_full(cfg, blk["mamba"], hn, chunk=run.ssd_chunk, return_state=True)
+            for key, t in state.items():
+                cache["mamba"][key][j].copy_(t)
+            h, _ = _ffn(cfg, blk, h + y, inference=True)
         else:
             hn = rms_norm(h, blk["norm"], cfg.norm_eps)
             y, (k, v) = attn.attn_apply_full(cfg, run, blk["attn"], hn, positions, return_kv=True)
@@ -256,9 +282,9 @@ def decode_step(
     ``active`` is an optional (B,) bool mask for ragged batches: inactive
     slots neither advance their position nor overwrite their KV slot or
     recurrent state (their logits are garbage the caller ignores). The
-    JAX package's ``decode_step`` advances the mLSTM and sLSTM state of
-    inactive rows too (ROADMAP C5); the port keeps them, so a parked
-    session resumes from its own state. Under MoE every row is its own
+    JAX package's ``decode_step`` advances the mLSTM, sLSTM and Mamba
+    state of inactive rows too (ROADMAP C5, C8); the port keeps them, so a
+    parked session resumes from its own state. Under MoE every row is its own
     dispatch group at S = 1 (capacity one slot per expert), so rows never
     compete for experts. The cache is updated in place and returned.
     """
@@ -275,6 +301,13 @@ def decode_step(
             for key, t in state.items():
                 _write_rows(layer[key], t, active)
             h = h + y
+        elif kind == "mamba":
+            hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+            layer = {key: t[j] for key, t in cache["mamba"].items()}
+            y, state = ssm.mamba_apply_step(cfg, blk["mamba"], layer, hn)
+            for key, t in state.items():
+                _write_rows(layer[key], t, active)
+            h, _ = _ffn(cfg, blk, h + y, inference=True)
         else:
             hn = rms_norm(h, blk["norm"], cfg.norm_eps)
             layer_cache = {"k": cache["k"][j], "v": cache["v"][j]}
@@ -291,7 +324,6 @@ def decode_step(
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     """Zero-filled cache (decode-from-scratch, or a serving arena), with
     the parts the architecture has; ``max_len`` sizes the KV part only."""
-    _check_ported(cfg)
     counts = _kind_counts(cfg)
     cache = {"pos": torch.zeros((batch,), dtype=torch.long, device=device)}
     if "attn" in counts:
@@ -306,4 +338,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     if "slstm" in counts:
         one = ssm.slstm_init_cache(cfg, batch, device)
         cache["slstm"] = {k: t.expand(counts["slstm"], *t.shape).contiguous() for k, t in one.items()}
+    if "mamba" in counts:
+        one = ssm.mamba_init_cache(cfg, batch, device)
+        cache["mamba"] = {k: t.expand(counts["mamba"], *t.shape).contiguous() for k, t in one.items()}
     return cache

@@ -1,12 +1,14 @@
-"""Recurrent blocks of the xLSTM stack: mLSTM and sLSTM.
+"""State-space and recurrent blocks: Mamba-2 (SSD), mLSTM, sLSTM.
 
-Port of the xLSTM part of ``repro/models/ssm.py`` (the Mamba-2 block waits
-for the jamba slice, which also needs MoE). ``chunked_ssd`` is the shared
-chunked scalar-decay linear recurrence; here it is a call to
+Port of ``repro/models/ssm.py``. ``chunked_ssd`` is the shared chunked
+scalar-decay linear recurrence; here it is a call to
 ``kernels/ops.py::ssm_scan`` (K3: the CUDA kernel on the card, its plain
-version on the CPU). mLSTM folds the exponential input gate into ``b`` and
-appends a ones column to the values, so the normaliser ``n`` rides along
-in the state. sLSTM is sequential (scalar memory, exponential gating, a
+version on the CPU). The Mamba-2 block feeds it per-head values, a decay
+from ``dt`` and the B and C maps that every head shares; its decode step is
+``ssd_step`` in plain PyTorch, as the JAX package computes it outside
+Pallas. mLSTM folds the exponential input gate into ``b`` and appends a
+ones column to the values, so the normaliser ``n`` rides along in the
+state. sLSTM is sequential (scalar memory, exponential gating, a
 stabiliser) and runs as a Python loop over time.
 
 Decode-step functions take the layer's recurrent state and return the new
@@ -21,9 +23,19 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamDef, const_init, norm_def, nrm, rms_norm, zeros_init
+from repro_torch.models.common import (
+    ParamDef,
+    const_init,
+    norm_def,
+    nrm,
+    ones_init,
+    rms_norm,
+    uniform_init,
+    zeros_init,
+)
 
 DEFAULT_CHUNK = 256
+MAMBA_HEAD_DIM = 128
 M_INIT = -1e30  # sLSTM stabiliser state before the first step
 
 
@@ -52,6 +64,128 @@ def ssd_step(h, x_t, loga_t, b_t, c_t):
     h = a[..., None, None] * h + b_t.float()[..., :, None] * x_t.float()[..., None, :]
     y = (c_t.float()[..., None, :] @ h)[..., 0, :]
     return y.to(x_t.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 block
+# ---------------------------------------------------------------------------
+
+
+def mamba_heads(cfg: ModelConfig) -> int:
+    return max(1, cfg.d_inner // MAMBA_HEAD_DIM)
+
+
+def mamba_defs(cfg: ModelConfig) -> dict:
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.d_state
+    h = mamba_heads(cfg)
+    w = cfg.conv_width
+    return {
+        "wz": ParamDef((d, di), nrm()),
+        "wx": ParamDef((d, di), nrm()),
+        "wb": ParamDef((d, n), nrm()),
+        "wc": ParamDef((d, n), nrm()),
+        "wdt": ParamDef((d, h), nrm()),
+        "dt_bias": ParamDef((h,), uniform_init(-4.0, -1.0)),
+        "a_log": ParamDef((h,), uniform_init(0.0, 1.3)),  # A in [1, e^1.3]
+        "d_skip": ParamDef((h,), ones_init),
+        "conv_x": ParamDef((w, di), nrm(fan_in_axis=0)),
+        "conv_b": ParamDef((w, n), nrm(fan_in_axis=0)),
+        "conv_c": ParamDef((w, n), nrm(fan_in_axis=0)),
+        "gate_norm": norm_def(di),
+        "wo": ParamDef((di, d), nrm()),
+    }
+
+
+def _causal_conv(x, kernel, state=None):
+    """Depthwise causal conv. x: (B, S, C); kernel: (W, C); state: the last
+    W - 1 inputs before x, (B, W - 1, C), zeros when None. Returns ``(out,
+    new state)``: the new state is the last W - 1 raw inputs, zero padding
+    included for S < W - 1.
+
+    The taps are summed as the reference sums them, left to right in x's
+    dtype, each product rounded to it first (``F.conv1d`` would accumulate
+    in fp32 and round once)."""
+    w, s = kernel.shape[0], x.shape[1]
+    if state is None:
+        pad = torch.zeros((x.shape[0], w - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    out = xp[:, :s] * kernel[0]
+    for i in range(1, w):
+        out = out + xp[:, i:i + s] * kernel[i]
+    return out, xp[:, s:]
+
+
+def _mamba_project(cfg, params, x, conv_state=None):
+    """The input projections and the causal convs, shared by the full pass
+    and the step. Returns ``(z, xin, bmat, cmat, dt, loga, conv state)``:
+    xin, bmat, cmat after the conv and SiLU in the compute dtype; ``dt =
+    softplus(x W_dt + dt_bias)`` and the per-head log decay ``loga = dt ·
+    (-exp(a_log))`` in fp32."""
+    dt_ = _dtype(cfg)
+    z = x @ params["wz"].to(dt_)
+    state = {}
+    conv = []
+    for name, w in (("conv_x", "wx"), ("conv_b", "wb"), ("conv_c", "wc")):
+        out, state[name] = _causal_conv(x @ params[w].to(dt_), params[name].to(dt_),
+                                        None if conv_state is None else conv_state[name])
+        conv.append(F.silu(out))
+    dt_raw = x @ params["wdt"].to(dt_)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
+    loga = dt * -torch.exp(params["a_log"].float())  # (B, S, H), <= 0
+    return (z, *conv, dt, loga, state)
+
+
+def _mamba_out(cfg, params, y, xh, z):
+    """y + D·x per head, the gated RMSNorm, and the output projection; y
+    and xh (B, S, H, P), z (B, S, d_inner)."""
+    dt_ = _dtype(cfg)
+    y = y + params["d_skip"].to(dt_)[:, None] * xh
+    y = y.flatten(-2)
+    y = rms_norm(y, params["gate_norm"], cfg.norm_eps) * F.silu(z)
+    return y @ params["wo"].to(dt_)
+
+
+def mamba_apply_full(cfg: ModelConfig, params, x, chunk=DEFAULT_CHUNK, return_state=False):
+    """x: (B, S, D). With ``return_state`` also the decode cache the prompt
+    leaves: ``{"conv_x", "conv_b", "conv_c"}`` (the last W - 1 raw inputs
+    of each conv) and ``"ssm"``, the final state (B, H, N, P) fp32."""
+    dt_ = _dtype(cfg)
+    B, S, _ = x.shape
+    H, P, N = mamba_heads(cfg), MAMBA_HEAD_DIM, cfg.d_state
+    z, xin, bmat, cmat, dt, loga, state = _mamba_project(cfg, params, x)
+    xh = xin.view(B, S, H, P)
+    bh = bmat[:, :, None, :] * dt[..., None]  # (B, S, H, N) fp32, rounded below as the reference rounds it
+    ch = cmat[:, :, None, :].expand(B, S, H, N)
+    y, state["ssm"] = chunked_ssd(xh, loga, bh.to(dt_), ch, chunk=chunk)
+    out = _mamba_out(cfg, params, y, xh, z)
+    return (out, state) if return_state else out
+
+
+def mamba_init_cache(cfg: ModelConfig, batch: int, device) -> dict:
+    """``{"conv_x" (B, W - 1, d_inner), "conv_b", "conv_c" (B, W - 1, N)}``
+    in the compute dtype and ``"ssm" (B, H, N, P)`` fp32, all zero."""
+    H, P, N = mamba_heads(cfg), MAMBA_HEAD_DIM, cfg.d_state
+    w, dt_ = cfg.conv_width, _dtype(cfg)
+    return {
+        "conv_x": torch.zeros((batch, w - 1, cfg.d_inner), dtype=dt_, device=device),
+        "conv_b": torch.zeros((batch, w - 1, N), dtype=dt_, device=device),
+        "conv_c": torch.zeros((batch, w - 1, N), dtype=dt_, device=device),
+        "ssm": torch.zeros((batch, H, N, P), dtype=torch.float32, device=device),
+    }
+
+
+def mamba_apply_step(cfg: ModelConfig, params, state: dict, x):
+    """x: (B, 1, D); state as :func:`mamba_init_cache`. Returns (out, new state)."""
+    B = x.shape[0]
+    H, P, N = mamba_heads(cfg), MAMBA_HEAD_DIM, cfg.d_state
+    z, xin, bmat, cmat, dt, loga, new = _mamba_project(cfg, params, x, state)
+    xh = xin.view(B, H, P)
+    bh = bmat[:, 0, None, :] * dt[:, 0, :, None]  # (B, H, N) fp32
+    ch = cmat[:, 0, None, :].expand(B, H, N)
+    y, new["ssm"] = ssd_step(state["ssm"], xh, loga[:, 0], bh, ch)
+    return _mamba_out(cfg, params, y[:, None], xh[:, None], z), new
 
 
 def _project_out(cfg, params, x, h):

@@ -20,8 +20,12 @@ def test_import_port_leaves_jax_out():
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 37, mods\n"
+        "assert len(mods) >= 40, mods\n"
         "assert {'repro_torch.core.router', 'repro_torch.core.autoscale', 'repro_torch.launch.fleet'} <= set(mods)\n"
+        "last = {'repro_torch.configs.' + m for m in ('jamba_1_5_large_398b', 'llava_next_34b', 'musicgen_medium')}\n"
+        "assert last <= set(mods), sorted(last - set(mods))\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "assert len(ARCH_IDS) == 10 and all(get_config(a).name == a for a in ARCH_IDS)\n"
         "sim = {'repro_torch.core.' + m for m in ('topology', 'capacity', 'placement', 'replication', 'heartbeat',\n"
         "       'scheduler', 'simulator', 'workload', 'namespace', 'tuning')}\n"
         "sim |= {'repro_torch.configs.hadoop_cluster', 'repro_torch.data.sampler'}\n"

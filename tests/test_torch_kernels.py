@@ -354,23 +354,70 @@ def test_ssm_scan_kernel_matches_plain_on_card(cuda, case, dtype):
     fp32 it is itself up to 5e-5 of the scale from the exact result at input
     gates near e^10 (``scripts/k3_precision.py``)."""
 
-    def scaled_err(a, b):
-        a, b = a.float(), b.float()
-        scale = b.abs() + b.abs().amax(dim=-1, keepdim=True)
-        return float(((a - b).abs() / scale.clamp_min(1e-30)).max())
-
     B, S, H, P, N, chunk, _ = case
-    x, loga, b, c = _ssm_card_inputs(cuda, case, dtype)
+    y, ye = _ssm_held_on_card(*_ssm_card_inputs(cuda, case, dtype), chunk)
+    assert _scaled_err(y, ye) <= (1e-5 if dtype == "float32" else 1e-2)
+
+
+def _scaled_err(a, b):
+    """Largest |a - b| / (|b| + the largest |b| of its row, the last axis)."""
+    a, b = a.float(), b.float()
+    scale = b.abs() + b.abs().amax(dim=-1, keepdim=True)
+    return float(((a - b).abs() / scale.clamp_min(1e-30)).max())
+
+
+def _ssm_held_on_card(x, loga, b, c, chunk):
+    """One ``ops.ssm_scan`` call on the card (one K3 launch) against the
+    plain version on the inputs widened to fp64: h within 1e-5 of each
+    element's scale. Returns y and the exact y rounded where the kernel
+    rounds it, for the caller to hold."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
     before = ops.LAUNCHES["ssm_scan"]
     y, h = ops.ssm_scan(x, loga, b, c, chunk=chunk)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["ssm_scan"] == before + 1
     ye, he = unfold(*ssm_scan_plain(*(t.double() for t in fold(x, loga, b, c, chunk)), chunk), B, S, P, N)
-    ye = ye.to(x.dtype)  # y is compared where the kernel rounds it
-    tol = 1e-5 if dtype == "float32" else 1e-2
     assert y.dtype == x.dtype and y.shape == (B, S, H, P) and h.shape == (B, H, N, P)
-    assert scaled_err(y, ye) <= tol
-    assert scaled_err(h, he) <= 1e-5
+    assert _scaled_err(h, he) <= 1e-5
+    return y, ye.to(x.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1000, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernel_matches_plain_at_mamba_shape_on_card(cuda, S, dtype):
+    """K3 at jamba's Mamba layout (BH 128, P 128, N 64, c shared by every
+    head), over one prompt of 1000 tokens (pads to 1024) and one of 4096
+    (16 chunks of 256): h as the cases above; y against the magnitude of
+    the terms each element sums (the plain version in fp64 on |x|, loga,
+    |b|, |c|), 1e-6 in fp32 and 1e-2 in bf16, as ``chip_smoke.py`` holds
+    its "loga ~ -5" case. At Mamba's decays (down to e^-11 a step) a row of
+    y is nearly c_t . b_t times x_t, and where that dot product cancels the
+    row's own scale falls up to ~5000 times below the terms; there the
+    kernel errs ~1.6e-7 of the terms in fp32 and 4e-6 to 2e-5 of the
+    row's scale (``scripts/k3_precision.py``)."""
+    from chip_smoke import mamba_scan_inputs
+
+    x, loga, b, c = mamba_scan_inputs(torch.Generator(device=cuda).manual_seed(S), 1, S, DTYPES[dtype])
+    y, ye = _ssm_held_on_card(x, loga, b, c, 256)
+    ax, ab, ac = (t.double().abs() for t in (x, b, c))
+    terms, _ = unfold(*ssm_scan_plain(*fold(ax, loga.double(), ab, ac, 256), 256), 1, S, 128, 64)
+    err = float(((y.double() - ye.double()).abs() / terms.clamp_min(1e-300)).max())
+    assert err <= (1e-6 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_kernel_batch_invariant_at_mamba_shape_on_card(cuda):
+    """At the Mamba layout with two prompts (BH 256), through
+    ``chip_smoke.k3_bit_checks``: two calls give the same bits, each
+    prompt's rows called alone give the bits they give in the batch, and a
+    call replayed from a CUDA graph equals the eager call."""
+    from chip_smoke import k3_bit_checks, mamba_scan_inputs
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    bits = k3_bit_checks(fold(*mamba_scan_inputs(gen, 2, 1000, torch.bfloat16), 256), 128)
+    assert all(bits.values()), bits
 
 
 @pytest.mark.gpu

@@ -4,8 +4,11 @@ The JAX param tree from ``M.init_model(PRNGKey(0))`` goes to the port as
 numpy arrays (``repro_torch.bridge``); token inputs come from one numpy
 generator. Compute is fp32 and logits must agree to 1e-4. qwen3 is held
 in detail; each of the five other dense and MoE archs (internlm2-1.8b,
-internlm2-20b, llama3-405b, moonshot-v1-16b-a3b, mixtral-8x22b), reduced,
-through forward, prefill and decode on every attention knob.
+internlm2-20b, llama3-405b, moonshot-v1-16b-a3b, mixtral-8x22b) and the
+two frontend archs (llava-next-34b, musicgen-medium), reduced, through
+forward, prefill and decode on every attention knob; the frontends also
+with prefix features. jamba-1.5-large-398b (the Mamba-2 hybrid) is held in
+``tests/test_torch_mamba.py``; here its parameter counts and its bridge.
 """
 
 import dataclasses
@@ -192,19 +195,23 @@ def test_bridged_shapes_match_init_and_init_is_seeded():
 
 
 def test_unported_archs_raise():
-    """The Mamba-2 hybrid and the frontends are not ported: their archs,
-    a Mamba-block config and a frontend config raise. A MoE FFN builds."""
-    for arch in ("jamba-1.5-large-398b", "llava-next-34b", "musicgen-medium"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch + "-smoke")
+    """Every arch of the JAX package is ported now: the three that raised
+    "not ported" until the Mamba-2 block and the frontends came (jamba,
+    llava, musicgen) build at full width and as smoke configs, with the
+    JAX package's parameter counts; a Mamba-block config and a frontend
+    config built on qwen3 build too, and so does a MoE FFN."""
+    for arch in LAST_ARCHS:
+        cfg, smoke = get_config(arch), get_config(arch + "-smoke")
+        assert cfg.name == arch and smoke.name == arch + "-smoke"
+        assert M.count_params_exact(smoke) == JM.count_params_exact(jax_get_config(arch + "-smoke"))
+        layers = M.init_model(smoke, torch.Generator())["layers"]
+        assert len(layers) == smoke.num_layers
     base = get_config("qwen3-1.7b").reduced()
-    mamba = dataclasses.replace(base, ssm_kind="mamba2", attn_every=2)
-    with pytest.raises(NotImplementedError, match="mamba blocks are not ported"):
-        M.init_model(mamba, torch.Generator())
-    with pytest.raises(NotImplementedError, match="frontend is not ported"):
-        M.init_model(dataclasses.replace(base, frontend="vision_patches"), torch.Generator())
+    mamba = dataclasses.replace(base, ssm_kind="mamba2", attn_every=2, d_model=128)
+    layers = M.init_model(mamba, torch.Generator())["layers"]
+    assert [set(blk) for blk in layers] == [{"norm", "attn", "ffn_norm", "ffn"}, {"norm", "mamba", "ffn_norm", "ffn"}]
+    vision = M.init_model(dataclasses.replace(base, frontend="vision_patches"), torch.Generator())
+    assert vision["frontend"]["proj"].shape == (M.FRONTEND_FEATURE_DIM["vision_patches"], base.d_model)
     moe = dataclasses.replace(base, num_experts=4, experts_per_token=2, moe_d_ff=32)
     layer = M.init_model(moe, torch.Generator())["layers"][0]
     assert set(layer) == {"norm", "attn", "ffn_norm", "moe"}
@@ -215,6 +222,12 @@ def test_unported_archs_raise():
 # ------------------------------------------- the five dense and MoE archs
 
 NEW_ARCHS = ("internlm2-1.8b", "internlm2-20b", "llama3-405b", "moonshot-v1-16b-a3b", "mixtral-8x22b")
+# the last three, with the Mamba-2 block and the frontends; their exact
+# parameter counts at full width (the JAX package's)
+LAST_ARCHS = ("jamba-1.5-large-398b", "llava-next-34b", "musicgen-medium")
+FULL_COUNTS = {"jamba-1.5-large-398b": 397_578_714_240, "llava-next-34b": 34_397_174_784,
+               "musicgen-medium": 1_818_576_384}
+FRONTEND_ARCHS = ("llava-next-34b", "musicgen-medium")
 KNOBS = {  # port's RunConfig, the JAX package's
     "xla": (RunConfig(attention_impl="xla"), JaxRunConfig(attention_impl="xla", remat="none")),
     "chunked": (RunConfig(attention_impl="chunked", attention_chunk=8),
@@ -250,11 +263,12 @@ def test_new_archs_registered():
 
 
 @pytest.mark.parametrize("knob", list(KNOBS))
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + FRONTEND_ARCHS)
 def test_new_arch_matches_jax(arch, knob):
     """Forward (logits and MoE aux), prefill (logits and cache), then four
-    decode steps under an active mask, so the rows' positions drift apart.
-    S = 24 runs past mixtral-smoke's window of 16 and is one MoE group.
+    decode steps under an active mask, so the rows' positions drift apart;
+    the frontend archs on tokens alone, as they serve. S = 24 runs past
+    mixtral-smoke's window of 16 and is one MoE group.
     Under the window a parked row is left out once parked: the reference
     writes its last ring slot (ROADMAP C4)."""
     jcfg, pcfg = _arch_cfgs(arch)
@@ -289,12 +303,12 @@ def test_new_arch_matches_jax(arch, knob):
     assert pc["pos"].tolist() == [27, 27, 28]
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + LAST_ARCHS)
 def test_full_width_counts_match_reference(arch):
     """Total and active parameters at full width, counted from shapes
     (nothing allocated), equal the JAX package's counts."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
-    assert M.count_params_exact(cfg) == JM.count_params_exact(jcfg)
+    assert M.count_params_exact(cfg) == JM.count_params_exact(jcfg) == FULL_COUNTS.get(arch, M.count_params_exact(cfg))
     assert M.count_active_params_exact(cfg) == JM.count_active_params_exact(jcfg)
     if cfg.num_experts:
         assert M.count_active_params_exact(cfg) < M.count_params_exact(cfg) / 2
@@ -302,14 +316,71 @@ def test_full_width_counts_match_reference(arch):
         assert M.count_active_params_exact(cfg) == M.count_params_exact(cfg)
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + LAST_ARCHS)
 def test_bridged_shapes_match_init(arch):
-    """The bridge carries every subtree (the ``moe`` one included) in the
-    shapes ``init_model`` builds."""
+    """The bridge carries every subtree (the ``moe``, ``mamba`` and
+    ``frontend`` ones included) in the shapes ``init_model`` builds."""
     jcfg, pcfg = _arch_cfgs(arch)
     _, pp = _params(jcfg, pcfg)
     own = M.init_model(pcfg, torch.Generator().manual_seed(0))
     shapes = lambda t: jax.tree_util.tree_flatten_with_path(jax.tree.map(lambda x: tuple(x.shape), t))[0]  # noqa: E731
     assert [(jax.tree_util.keystr(k), v) for k, v in shapes(pp)] == \
         [(jax.tree_util.keystr(k), v) for k, v in shapes(own)]
-    assert ("moe" in pp["layers"][0]) == bool(pcfg.num_experts)
+    assert any("moe" in blk for blk in pp["layers"]) == bool(pcfg.num_experts)
+
+
+@pytest.mark.parametrize("arch", LAST_ARCHS)
+def test_bridge_carries_every_leaf(arch):
+    """Every leaf of the JAX param tree arrives in the port's tree with
+    its values: the period-stacked layers one per layer, and every other
+    entry, nested ones (``frontend.proj``) included, as it is."""
+    jcfg, pcfg = _arch_cfgs(arch)
+    jp, pp = _params(jcfg, pcfg)
+    seen = 0
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jp))[0]:
+        keys = [k.key for k in path]
+        if keys[0] == "layers":
+            j = int(keys[1][1:])
+            for n in range(pcfg.num_periods):
+                node = pp["layers"][n * pcfg.period + j]
+                for k in keys[2:]:
+                    node = node[k]
+                assert np.array_equal(node.numpy(), leaf[n]), keys
+        else:
+            node = pp
+            for k in keys:
+                node = node[k]
+            assert np.array_equal(node.numpy(), leaf), keys
+        seen += leaf.size
+    assert seen == M.count_params_exact(pcfg) == sum(t.numel() for t in jax.tree.leaves(pp))
+    assert ("frontend" in pp) == bool(pcfg.frontend)
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_prefix_features_forward_and_prefill_match(arch):
+    """The frontend: 6 seeded feature vectors (128-dim audio frames, or
+    1152-dim vision patches) projected before 10 tokens. Forward logits
+    over all 16 positions, the prefill's logits and cache (16 positions),
+    then two decode steps on tokens, against the JAX package."""
+    jcfg, pcfg = _arch_cfgs(arch)
+    jp, pp = _params(jcfg, pcfg)
+    rng = np.random.default_rng(8)
+    feat = rng.standard_normal((2, 6, M.FRONTEND_FEATURE_DIM[pcfg.frontend])).astype(np.float32)
+    jf, pf = jnp.asarray(feat), torch.from_numpy(feat)
+    jt, pt = _tokens(rng, 2, 10)
+    run_p, run_j = KNOBS["pallas"]
+    jl, _ = jax.jit(partial(JM.forward, jcfg, run_j))(jp, jt, prefix_features=jf)
+    pl, _ = M.forward(pcfg, run_p, pp, pt, prefix_features=pf)
+    assert pl.shape == (2, 16, pcfg.vocab_size)
+    _scaled_close(pl, jl)
+    jl, jc = jax.jit(partial(JM.prefill, jcfg, run_j, max_len=24))(jp, jt, prefix_features=jf)
+    pl, pc = M.prefill(pcfg, run_p, pp, pt, 24, prefix_features=pf)
+    _scaled_close(pl, jl)
+    _cache_close(pc, jc, pcfg, scaled=True)
+    assert pc["pos"].tolist() == [16, 16]
+    for _ in range(2):
+        jt, pt = _tokens(rng, 2, 1)
+        jl, jc = JM.decode_step(jcfg, run_j, jp, jc, jt, None)
+        pl, pc = M.decode_step(pcfg, run_p, pp, pc, pt)
+        _scaled_close(pl, jl)
+    _cache_close(pc, jc, pcfg, scaled=True)

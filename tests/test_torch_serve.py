@@ -2,7 +2,8 @@
 
 * Its arena token streams equal the JAX package's arena streams on
   bridged weights (fp32, greedy), through the plain path and through the
-  kernel knobs (whose plain versions run on the CPU).
+  kernel knobs (whose plain versions run on the CPU); on jamba-smoke (the
+  Mamba-2 hybrid) in the arena and in serial mode too.
 * Ports of the JAX package's serve tests (``test_serve_arena.py``, the
   serving tests of ``test_system.py``, the ServeLoop bookkeeping tests of
   ``test_affinity.py``, ``test_router.py`` and ``test_admission.py``).
@@ -91,6 +92,37 @@ def test_arena_streams_equal_jax_arena(jax_arena_streams, run):
     params = bridge.params_from_jax(jparams_np, cfg)
     reqs = _requests(7)
     stats = _loop(params, "arena", run=run, cfg=cfg).run_requests(reqs)
+    assert stats["completed"] == 7
+    assert [r.tokens for r in reqs] == jax_streams
+
+
+JAMBA = "jamba-1.5-large-398b"
+
+
+@pytest.fixture(scope="module")
+def jamba_jax_streams():
+    """jamba-smoke's JAX arena streams, fp32, on the JAX package's weights."""
+    jcfg = dataclasses.replace(jax_get_config(JAMBA).reduced(vocab_size=SMALL["vocab_size"]), compute_dtype="float32")
+    jparams = JM.init_model(jax.random.PRNGKey(0), jcfg)
+    reqs = _requests(7, cls=JaxRequest)
+    JaxServeLoop(jcfg, JaxRunConfig(remat="none", ssd_chunk=8), jparams, batch=4, max_len=32,
+                 mode="arena").run_requests(reqs)
+    return jax.tree.map(np.asarray, jparams), [r.tokens for r in reqs]
+
+
+@pytest.mark.parametrize("mode", ["arena", "serial"])
+def test_jamba_streams_equal_jax_arena(jamba_jax_streams, mode):
+    """jamba-smoke (Mamba-2 and attention blocks, MoE every other layer) in
+    fp32 on the JAX package's weights: seven requests through four slots
+    give the JAX arena's greedy tokens, in the port's arena and in its
+    serial reference. A join re-prefills its slot, so the reference's C8
+    hazard (a parked row's Mamba state moves) does not reach the streams."""
+    jparams_np, jax_streams = jamba_jax_streams
+    cfg = dataclasses.replace(get_config(JAMBA).reduced(vocab_size=SMALL["vocab_size"]), compute_dtype="float32")
+    params = bridge.params_from_jax(jparams_np, cfg)
+    reqs = _requests(7)
+    run = dataclasses.replace(KERNEL_RUN, ssd_chunk=8)
+    stats = _loop(params, mode, run=run, cfg=cfg).run_requests(reqs)
     assert stats["completed"] == 7
     assert [r.tokens for r in reqs] == jax_streams
 
@@ -359,3 +391,28 @@ def test_moe_kernel_path_matches_plain_on_card():
     assert agree["moe_calls"] == 5 * cfg.num_layers and agree["routing_identical"]
     tied = torch.tensor([[0.1, 0.3, 0.3, 0.2, 0.3, 0.1]], device="cuda").log()
     assert moe._top_k_routing(tied, 3)[2].tolist() == [[1, 2, 4]]
+
+
+@pytest.mark.gpu
+def test_mamba_kernel_path_matches_plain_on_card():
+    """jamba-smoke at d_model 256 (four Mamba heads) and head_dim 128 in fp32
+    on the card: the kernel path (K3 and K2 in the prefill, K1 in the decode
+    steps) against the plain path (K3's plain version summed in fp64)
+    through ``chip_smoke.paths_agree``, logits within 1e-3 of the largest
+    |logit| and the same experts chosen at every MoE layer and step, on a
+    320-token prompt (five MoE groups of 64; the scan pads it to two chunks
+    of 256)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from chip_smoke import paths_agree
+
+    cfg = dataclasses.replace(get_config(JAMBA).reduced(d_model=256, head_dim=128, num_heads=2, num_kv_heads=1),
+                              compute_dtype="float32")
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (2, 320), generator=torch.Generator(device="cuda").manual_seed(1),
+                           device="cuda")
+    agree = paths_agree(cfg, params, prompt, 328)
+    assert agree["sound"]
+    assert agree["max_abs_diff"] <= 1e-3 * max(1.0, agree["max_abs_logit"])
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    assert agree["moe_calls"] == 5 * n_moe and agree["routing_identical"]

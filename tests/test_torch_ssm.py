@@ -421,9 +421,15 @@ def test_full_width_param_count_and_unported():
     cfg = get_config("xlstm-1.3b")
     assert M.count_params_exact(cfg) == JM.count_params_exact(jax_get_config("xlstm-1.3b")) == 2_270_677_328
     assert [cfg.layer_kind(i) for i in range(8)] == ["mlstm"] * 7 + ["slstm"]
+    # the Mamba-2 hybrid, which raised "not ported" before its slice, builds
+    # in the reference's layout and counts as the JAX package does
     jamba = get_config("xlstm-1.3b").reduced(ssm_kind="mamba2", attn_every=8, slstm_every=0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.init_model(jamba, torch.Generator())
+    layers = M.init_model(jamba, torch.Generator())["layers"]
+    assert [next(k for k in ("attn", "mamba") if k in blk) for blk in layers] == (["attn"] + ["mamba"] * 7) * 2
+    assert layers[1]["mamba"]["a_log"].shape == (ssm.mamba_heads(jamba),)
+    full = get_config("jamba-1.5-large-398b")
+    assert M.count_params_exact(full) == JM.count_params_exact(jax_get_config("jamba-1.5-large-398b")) \
+        == 397_578_714_240
 
 
 def test_bridged_shapes_match_init(xlstm):
