@@ -108,11 +108,29 @@ toolkit: ``python3 chip_smoke.py``. It
    run right after phase 5 while the card holds nothing else, each freeing
    its weights; the depth cuts are mixtral's and jamba's, every width is
    the published one;
-17. prints one ``{"kernels": [...]}`` line with times and bounds (and the
-   launches of each serve path; for K1 and K2 the times at each head
-   grouping, for K3 at the Mamba shape), the seconds of each phase, the
-   card line, and last ``{"ok": true, "device": {...}}``. ``--out FILE``
-   also writes every measurement to FILE as JSON.
+17. (right after phase 16, while the card holds nothing else) trains:
+   K2's gradient (the kernel's forward, the reference's recompute
+   backward) against autograd through the plain forward at the training
+   shape, bf16 and fp32, with a ``grad_fn`` and no launch in the backward;
+   qwen3-1.7b at full width through ``repro_torch.launch.train.main``, pods
+   1.0 and 0.5, 3 microbatches of 2 x 1024 tokens a step, 6 steps: loss,
+   grad norm, schedule and virtual times per step, the loss of held-out
+   microbatches before the first step and after each, ms per grad
+   microbatch and per update, tok/s, peak memory and the share of a
+   microbatch in K2's forwards and in the recompute backwards; checks
+   finite losses, a held-out loss that falls, K2 = 28 x grad microbatches
+   and a non-zero gradient for every parameter; then, at 2 layers, one
+   fp32 grad step kernel path vs plain path (loss and every gradient) and
+   5 steps with the int8 + error-feedback combine (held-out loss falls);
+   a checkpoint of CUDA tensors restored bit for bit with a node lost, and
+   a smoke run that loses a pod at step 3, restores and goes on over a
+   re-proportioned schedule;
+18. prints one ``{"kernels": [...]}`` line with times and bounds (and the
+   launches of each serve path and of training; for K1 and K2 the times at
+   each head grouping, K2 also at the training shape, for K3 at the Mamba
+   shape), the seconds of each phase, the card line, and last ``{"ok":
+   true, "device": {...}}``. ``--out FILE`` also writes every measurement
+   to FILE as JSON.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 at once.
@@ -278,7 +296,7 @@ LINE_KEYS = ("name", "route", "source", "replaces", "tpu_kernel", "launches", "l
              "launches_by_path", "max_abs_err", "max_scaled_err", "max_scaled_err_by_dtype",
              "max_terms_err_mamba_shape", "ms", "kernel_ms",
              "eager_ms", "plain_ms", "library_ms", "library_note", "timing", "bound_ms", "bound_by", "groupings",
-             "mamba_shape", "design")
+             "mamba_shape", "training_shape", "design")
 DESIGN = {
     "flash_decode": "split S into 256-key blocks (fixed, batch-invariant), 16-byte loads, "
                     "8 key rows in flight per lane, fixed-order combine kernel",
@@ -1426,6 +1444,337 @@ def k3_mamba(gen, card: str) -> dict:
     return rec
 
 
+# -- 17. training --------------------------------------------------------
+# qwen3-1.7b at full width through repro_torch.launch.train.main: pods of
+# speed 1.0 and 0.5, microbatches of 2 x 1024 tokens, 3 a step (schedule
+# (2, 1)), the trainer's own lr (3e-4 after 5 warmup steps). A step's loss
+# is its last microbatch's, 2048 tokens of a corpus whose tokens are
+# uniform over 151,936: from random weights it moves by a few 1e-2 from
+# batch to batch, more than 6 steps teach. So the check that training
+# lowers the loss is made on HELD_OUT fixed microbatches (another seed),
+# their mean loss taken before the first step and after each one.
+TRAIN_ARGS = ["--arch", "qwen3-1.7b", "--steps", "6", "--batch", "2", "--seq", "1024", "--microbatches", "3",
+              "--pods", "1.0,0.5", "--log-every", "100", "--device", "cuda"]
+HELD_OUT, HELD_OUT_SEED = 4, 99
+# K2's gradient (the kernel's forward, the reference's recompute backward)
+# against autograd through the plain forward, at qwen3's training shape (B,
+# S, H, KH, head_dim) and at a window with a query offset, each gradient's
+# largest error over its largest |g| (at least 1): fp32 1e-5 (one fp32
+# function differentiated two ways, its sums in another order); bf16
+# BF16_TOL, the forward's limit (both round the same fp32 gradients to
+# bf16, one unit apart at most). Each element besides against its own
+# scale (scaled_err), ATTN_SCALED_TOL as the forward's output.
+K2_TRAIN_SHAPE = (2, 1024, 16, 8, 128)
+K2_GRAD_CASES = ((K2_TRAIN_SHAPE, 0, 0), ((1, 100, 4, 2, 128), 70, 1024))
+K2_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: BF16_TOL}
+# the fp32 one-step check at a cut depth: the loss to 1e-5 of itself and
+# every gradient to TRAIN_GRAD_TOL of its leaf's largest |g|, kernel path
+# (K2, recompute backward) against the plain path (chunked attention under
+# autograd). Both differentiate one fp32 function with sums in other
+# orders; a wrong mask, scale or head mapping in either direction moves a
+# gradient by O(|g|).
+TRAIN_CUT_LAYERS, TRAIN_GRAD_TOL = 2, 1e-3
+SMOKE_D_MODEL = 256  # the checkpoint and elastic runs: qwen3-1.7b-smoke with heads of 64
+
+
+def named_leaves(tree, path=""):
+    """(path, tensor) in the order of ``models/common.py::tree_leaves``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from named_leaves(t, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def k2_grad_check(gen, shape, dtype, window: int = 0, q_offset: int = 0) -> dict:
+    """``ops.flash_attention`` on CUDA tensors that require a gradient: the
+    output has a ``grad_fn``, one K2 launch and none in the backward; dq,
+    dk and dv keep the inputs' dtype and are held against autograd through
+    :func:`flash_attention_plain` on the same inputs and cotangent. Returns
+    each gradient's error over its largest |g| (``err``), its scaled error
+    and whether it passes ``K2_GRAD_TOL`` and ``ATTN_SCALED_TOL``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    B, S, H, KH, D = shape
+    sk = S + q_offset
+    q, g = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, sk, KH, D, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    got = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(*got, q_offset=q_offset, window=window)
+    has_grad_fn, fwd = out.grad_fn is not None, ops.LAUNCHES["flash_attention"] - before
+    out.backward(g)
+    bwd = ops.LAUNCHES["flash_attention"] - before - fwd
+    flash_attention_plain(*ref, q_offset=q_offset, window=window, scale=D**-0.5).backward(g)
+    torch.cuda.synchronize()
+    res = {"shape": list(shape), "window": window, "q_offset": q_offset, "dtype": str(dtype), "tol": K2_GRAD_TOL[dtype],
+           "grad_fn": has_grad_fn, "forward_launches": fwd, "backward_launches": bwd,
+           "dtype_kept": all(t.grad is not None and t.grad.dtype == dtype for t in got), "err": {}, "scaled": {}}
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        if a.grad is None:
+            res["err"][name] = res["scaled"][name] = float("inf")
+            continue
+        res["err"][name] = float((a.grad.float() - b.grad.float()).abs().max()) / max(1.0, float(b.grad.abs().max()))
+        res["scaled"][name] = scaled_err(a.grad, b.grad)
+    res["ok"] = (has_grad_fn and fwd == 1 and bwd == 0 and res["dtype_kept"]
+                 and max(res["err"].values()) <= K2_GRAD_TOL[dtype]
+                 and max(res["scaled"].values()) <= ATTN_SCALED_TOL[dtype])
+    return res
+
+
+@contextlib.contextmanager
+def stepping(cfg, held_losses: list, walls: list):
+    """Patch ``HetCoordinator.step`` to record the host seconds of each
+    global step (the step ends in a host sync: its metrics) in ``walls``,
+    and the mean loss of HELD_OUT fixed microbatches of 2 x 1024 tokens
+    (seed HELD_OUT_SEED) before the first step and after each in
+    ``held_losses``, on the plain path (no K2 launch, no span)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.coordinator import HetCoordinator
+    from repro_torch.data.dataset import batch_iterator
+    from repro_torch.models import model as M
+
+    held = [b for _, b in zip(range(HELD_OUT), batch_iterator(cfg, 1024, 2, seed=HELD_OUT_SEED))]
+    plain_run = RunConfig(remat="none", attention_impl="chunked")
+    coord_step = HetCoordinator.step
+
+    @torch.no_grad()
+    def held_out_loss(params):
+        total = 0.0
+        for b in held:
+            toks = torch.as_tensor(b["tokens"], device=params["embed"].device).long()
+            logits, aux = M.forward(cfg, plain_run, params, toks)
+            total += float(M.lm_loss(cfg, plain_run, logits[:, :-1], toks[:, 1:], None, aux)[0])
+        return total / len(held)
+
+    def step(self, params, *args):
+        if not held_losses:
+            held_losses.append(held_out_loss(params))
+        t = time.perf_counter()
+        res = coord_step(self, params, *args)
+        walls.append(time.perf_counter() - t)
+        held_losses.append(held_out_loss(res[0]))
+        return res
+
+    with mock.patch.object(HetCoordinator, "step", step):
+        yield
+
+
+def train_phase(card: str) -> dict:
+    """Phase 17 (run after the large serves, while the card holds nothing
+    else; frees everything at its end): K2's gradient at the training
+    shape; qwen3-1.7b trained at full width through ``launch.train.main``
+    (CUDA events around each grad microbatch, each update, each K2 forward
+    and each recompute backward; the host clock around each global step);
+    the fp32 one-step check at a cut depth; the int8 + error-feedback
+    combine at that depth; a checkpoint of CUDA tensors restored bit for
+    bit with a node lost, and a smoke run that loses a pod at step 3 and
+    restores."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.dataset import batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_grad_step, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    # -- K2's gradient ------------------------------------------------------
+    grads = [k2_grad_check(gen, shape, dtype, window=win, q_offset=off)
+             for shape, win, off in K2_GRAD_CASES for dtype in (torch.bfloat16, torch.float32)]
+    for r in grads:
+        print(f"K2 gradient (kernel forward, recompute backward) vs autograd through the plain forward, "
+              f"{r['dtype']}, shape {r['shape']}, window {r['window']}, offset {r['q_offset']}: over the largest "
+              f"|g| {', '.join(f'{n} {e:.3e}' for n, e in r['err'].items())} (tol {r['tol']}); "
+              f"scaled {', '.join(f'{n} {e:.3e}' for n, e in r['scaled'].items())}; grad_fn {r['grad_fn']}, "
+              f"launches {r['forward_launches']} forward, {r['backward_launches']} backward")
+    check(all(r["ok"] for r in grads), f"K2 gradient vs plain autograd: {[r for r in grads if not r['ok']]}")
+    out["k2_grad"] = grads
+    free_card()
+
+    # -- qwen3-1.7b at full width through train.main ------------------------
+    spans = {"grad": [], "update": [], "k2_fwd": [], "k2_bwd": []}
+    walls, zero_grads = [], {}
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = fn(*args, **kwargs)
+            b.record()
+            spans[key].append((a, b))
+            return res
+        return call
+
+    make = train_mod.make_grad_step
+
+    def make_timed(cfg, run):
+        step = timed("grad", make(cfg, run))
+
+        def grad_step(params, batch):
+            grads_, metrics = step(params, batch)
+            if not zero_grads:  # once, outside the timed span: every leaf got a gradient
+                named = list(named_leaves(grads_))
+                nonzero = torch.stack([(t != 0).any() for _, t in named]).tolist()
+                zero_grads.update(leaves=len(named), zero=[p for (p, _), nz in zip(named, nonzero) if not nz])
+            return grads_, metrics
+        return grad_step
+
+    cfg = get_config("qwen3-1.7b")
+    held_losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_mod, "make_grad_step", make_timed), \
+            mock.patch.object(adamw, "adamw_update", timed("update", adamw.adamw_update)), \
+            mock.patch.object(ops, "flash_attention", timed("k2_fwd", ops.flash_attention)), \
+            mock.patch.object(ops, "flash_attention_ref_vjp", timed("k2_bwd", ops.flash_attention_ref_vjp)), \
+            stepping(cfg, held_losses, walls):
+        res = train_mod.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, peak = dict(ops.LAUNCHES), torch.cuda.max_memory_allocated()
+    L, mbs = cfg.num_layers, len(spans["grad"])
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    first_mb = sum(hist[0]["schedule"])  # the first step's microbatches warm up: left out of the medians
+    steady = range(first_mb, mbs)
+    share_fwd = [sum(ms["k2_fwd"][i * L:(i + 1) * L]) / ms["grad"][i] for i in steady]
+    share_bwd = [sum(ms["k2_bwd"][i * L:(i + 1) * L]) / ms["grad"][i] for i in steady]
+    tokens_per_step = 3 * 2 * 1024
+    train = {
+        "args": TRAIN_ARGS, "params": M.count_params_exact(cfg), "losses": losses, "held_out_losses": held_losses,
+        "grad_norms": [h["grad_norm"] for h in hist], "schedules": [h["schedule"] for h in hist],
+        "virtual_s": [h["virtual_s"] for h in hist], "homo_s": [h["homo_s"] for h in hist],
+        "grad_microbatches": mbs, "launches": launches, "peak_bytes": peak, "wall_s": wall,
+        "step_wall_s": walls, "microbatch_ms": ms["grad"], "update_ms": ms["update"],
+        "microbatch_ms_median": float(np.median([ms["grad"][i] for i in steady])),
+        "update_ms_median": float(np.median(ms["update"][1:])),
+        "step_s_median": float(np.median(walls[1:])),
+        "k2_forward_share": float(np.mean(share_fwd)), "recompute_backward_share": float(np.mean(share_bwd)),
+        "k2_forward_ms_median": float(np.median(ms["k2_fwd"][first_mb * L:])),
+        "recompute_backward_ms_median": float(np.median(ms["k2_bwd"][first_mb * L:])),
+        "zero_grad_leaves": zero_grads,
+    }
+    train["tokens_per_s"] = tokens_per_step / train["step_s_median"]
+    for h in hist:
+        print(f"train qwen3-1.7b step {h['step']}: loss {h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, "
+              f"schedule {h['schedule']}, het {h['virtual_s']:.2f} s, homo {h['homo_s']:.2f} s (virtual)")
+    print(f"train qwen3-1.7b ({train['params']} params, fp32 master weights, bf16 compute, pods 1.0 and 0.5, "
+          f"3 microbatches of 2 x 1024 a step) on {card}: {train['microbatch_ms_median']:.1f} ms per grad "
+          f"microbatch, {train['update_ms_median']:.1f} ms per update, {train['step_s_median']:.3f} s per step, "
+          f"{train['tokens_per_s']:.0f} tok/s, peak {peak / 2**30:.2f} GiB; {L} K2 forwards "
+          f"{train['k2_forward_share']:.1%} of a microbatch ({train['k2_forward_ms_median']:.4f} ms each), "
+          f"{L} recompute backwards {train['recompute_backward_share']:.1%} "
+          f"({train['recompute_backward_ms_median']:.3f} ms each); launches {launches}")
+    print(f"train qwen3-1.7b held-out loss ({HELD_OUT} fixed microbatches of 2 x 1024, seed {HELD_OUT_SEED}) before "
+          f"the first step and after each: " + ", ".join(f"{x:.4f}" for x in held_losses))
+    check(all(np.isfinite(losses + held_losses)) and len(held_losses) == len(losses) + 1
+          and held_losses[-1] < held_losses[0],
+          f"qwen3-1.7b training: losses {losses}, held-out losses {held_losses}")
+    check(mbs == sum(sum(h["schedule"]) for h in hist) == 18 and all(h["schedule"] == [2, 1] for h in hist),
+          f"qwen3-1.7b training schedules {train['schedules']}, {mbs} grad microbatches")
+    check(launches["flash_attention"] == L * mbs == len(ms["k2_fwd"]) and len(ms["k2_bwd"]) == L * mbs,
+          f"K2 launches {launches['flash_attention']} != {L} x {mbs} grad microbatches "
+          f"(recompute backwards {len(ms['k2_bwd'])})")
+    check(zero_grads.get("leaves") == len(list(named_leaves(M.model_defs(cfg)))) and not zero_grads["zero"],
+          f"every parameter got a non-zero gradient: {zero_grads}")
+    out["train"] = train
+    del res
+    free_card()
+
+    # -- the fp32 one-step check at a cut depth -----------------------------
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS, compute_dtype="float32")
+    params = M.init_model(cut, torch.Generator(device="cuda").manual_seed(0))
+    batch = next(batch_iterator(cut, 1024, 2, seed=0))
+    ops.reset_launches()
+    gk, mk = make_grad_step(cut, RunConfig(remat="none", attention_impl="pallas"))(params, batch)
+    k2_cut = ops.LAUNCHES["flash_attention"]
+    gp, mp = make_grad_step(cut, RunConfig(remat="none", attention_impl="chunked"))(params, batch)
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
+    dloss = abs(float(mk["loss"]) - float(mp["loss"]))
+    out["fp32_cut"] = {"layers": TRAIN_CUT_LAYERS, "loss": float(mp["loss"]), "loss_diff": dloss,
+                       "grad_worst_over_leaf_scale": worst, "tol": TRAIN_GRAD_TOL, "k2_launches": k2_cut}
+    print(f"qwen3-1.7b fp32, {TRAIN_CUT_LAYERS} layers, one grad step on 2 x 1024 tokens, kernel path vs plain "
+          f"path: loss {float(mp['loss']):.6f}, diff {dloss:.3e}; worst gradient {worst:.3e} of its leaf's "
+          f"largest |g| (tol {TRAIN_GRAD_TOL}); K2 launches {k2_cut}")
+    check(k2_cut == TRAIN_CUT_LAYERS and dloss <= 1e-5 * abs(float(mp["loss"])) and worst <= TRAIN_GRAD_TOL,
+          f"fp32 cut training step, kernel vs plain: {out['fp32_cut']}")
+    del params, gk, gp
+    free_card()
+
+    # -- the int8 + error-feedback combine at the cut depth -----------------
+    ops.reset_launches()
+    cheld = []
+    with stepping(dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS), cheld, []):
+        res = train_mod.main(["--arch", "qwen3-1.7b", "--layers", str(TRAIN_CUT_LAYERS), "--steps", "5",
+                              "--batch", "2", "--seq", "1024", "--microbatches", "3", "--pods", "1.0,0.5",
+                              "--compress", "--log-every", "100", "--device", "cuda"])
+    closses = [h["loss"] for h in res["history"]]
+    out["compressed_cut"] = {"layers": TRAIN_CUT_LAYERS, "losses": closses, "held_out_losses": cheld,
+                             "launches": dict(ops.LAUNCHES)}
+    print(f"qwen3-1.7b, {TRAIN_CUT_LAYERS} layers, int8 + error-feedback combine over pods 1.0 and 0.5: losses "
+          + ", ".join(f"{x:.4f}" for x in closses) + "; held-out before the first step and after each: "
+          + ", ".join(f"{x:.4f}" for x in cheld))
+    check(all(np.isfinite(closses + cheld)) and cheld[-1] < cheld[0]
+          and ops.LAUNCHES["flash_attention"] == TRAIN_CUT_LAYERS * 3 * 5,
+          f"compressed combine trains: {out['compressed_cut']}")
+    del res
+    free_card()
+
+    # -- checkpoints of CUDA tensors; elastic restore at smoke size ---------
+    # qwen3-1.7b-smoke at d_model 256: its 4 heads are then 64 wide, the
+    # narrowest head K2 takes (the smoke config's own 16 it refuses)
+    smoke = dataclasses.replace(get_config("qwen3-1.7b-smoke"), d_model=SMOKE_D_MODEL, head_dim=64)
+    run = RunConfig(remat="none", attention_impl="pallas")
+    params = M.init_model(smoke, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw.init_opt_state(params)
+    params, opt, _ = make_train_step(smoke, run)(params, opt, next(batch_iterator(smoke, 64, 4, seed=0)))
+    state = {"params": params, "opt_state": opt, "step": opt["step"]}
+    rounds = {}
+    with tempfile.TemporaryDirectory() as d:
+        for red in ("replicate", "stripe"):
+            # 5 nodes: a stripe group of 4 shards keeps its parity on a fifth
+            cm = CheckpointManager(f"{d}/{red}", num_nodes=5, num_shards=8, redundancy=red)
+            cm.save(1, state)
+            got, info = cm.restore(1, tree_map(torch.zeros_like, state), failed_nodes={"node1"})
+            pairs = list(zip(tree_leaves(got), tree_leaves(state)))
+            rounds[red] = {"leaves": len(pairs), "recovery_reads": info["recovery_reads"],
+                           "bit_equal": all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+                                             for a, b in pairs)}
+        events = train_mod.main(["--arch", "qwen3-1.7b-smoke", "--d-model", str(SMOKE_D_MODEL), "--steps", "6",
+                                 "--batch", "4", "--seq", "64", "--microbatches", "8", "--pods", "1.0,1.0,0.5,0.25",
+                                 "--kill-pod", "1", "--kill-at", "3", "--ckpt-dir", f"{d}/train",
+                                 "--ckpt-every", "2", "--log-every", "100", "--device", "cuda"])
+    scheds = [h["schedule"] for h in events["history"]]
+    kinds = [e["kind"] for e in events["elastic_events"]]
+    out["checkpoint"] = {"rounds": rounds, "elastic_events": events["elastic_events"], "schedules": scheds}
+    print(f"checkpoint of CUDA tensors, node1 lost: {rounds}; smoke run losing pod1 at step 3: events {kinds}, "
+          f"schedules {scheds}")
+    check(all(r["bit_equal"] for r in rounds.values()), f"checkpoint restored bit for bit: {rounds}")
+    check(kinds == ["pod_dead", "restored"] and events["elastic_events"][1]["detail"]["step"] == 2
+          and all(len(x) == 4 for x in scheds[:3]) and all(len(x) == 3 and sum(x) == 8 for x in scheds[3:])
+          and all(np.isfinite(h["loss"]) for h in events["history"]),
+          f"elastic restore and re-proportioned schedule: {out['checkpoint']}")
+    del params, opt, state
+    free_card()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write every measurement as JSON to this file")
@@ -1686,6 +2035,10 @@ def main(argv=None) -> int:
     record["llava"] = serve_frontend("llava-next-34b", LLAVA_LENS, LLAVA_BATCH, LLAVA_MAX_LEN, card)
     lap("16. llava-next-34b")
 
+    # -- 17. training, right after the large serves: the card holds nothing else
+    record["training"] = train_phase(card)
+    lap("17. qwen3-1.7b training")
+
     # -- 6. serve qwen3-1.7b at full width ---------------------------------
     cfg = get_config("qwen3-1.7b")
     t0 = time.perf_counter()
@@ -1944,6 +2297,8 @@ def main(argv=None) -> int:
     for kern, key in ((kernels[0], "decode_attention"), (kernels[1], "flash_attention")):
         kern["launches_by_path"] = {"qwen3-1.7b serve": launches[key],
                                     **{f"{name} serve": sv["launches"][key] for name, sv in serves.items()}}
+        if key == "flash_attention":
+            kern["launches_by_path"]["qwen3-1.7b train"] = record["training"]["train"]["launches"][key]
         check(all(n > 0 for n in kern["launches_by_path"].values()), f"{kern['name']} launched on every path")
         times = grp["k1_times" if key == "decode_attention" else "k2_times"]
         kern["groupings"] = [{k: t[k] for k in ("G", "head_dim", "shape", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -1962,6 +2317,40 @@ def main(argv=None) -> int:
                                                for name, sv in serves.items())
     kernels[1]["launches_per_step"] += "".join(f"; {sv['k2_per_prefill']:g} per prefill ({name})"
                                                for name, sv in serves.items())
+    kernels[1]["launches_per_step"] += f"; {L} per grad microbatch (qwen3-1.7b train; the backward is a recompute)"
+    # K2 at the training shape (qwen3, 2 x 1024, causal): kernel, plain, SDPA
+    # and the bound; beside them the recompute backward of one layer and
+    # SDPA's forward and backward together, its yardstick
+    from repro_torch.kernels.flash_attention import flash_attention_ref_vjp
+    Bt, St, Ht, KHt, Dt = K2_TRAIN_SHAPE
+    qt, gt = rnd(Bt, St, Ht, Dt, dtype=torch.bfloat16), rnd(Bt, St, Ht, Dt, dtype=torch.bfloat16)
+    kt, vt = rnd(Bt, St, KHt, Dt, dtype=torch.bfloat16), rnd(Bt, St, KHt, Dt, dtype=torch.bfloat16)
+    t_flops = 4 * Bt * Ht * Dt * St * (St + 1) // 2
+    t_bytes = (2 * qt.numel() + kt.numel() + vt.numel()) * 2
+    t_b, t_o = t_bytes / HBM_BYTES_PER_S * 1e3, t_flops / BF16_FLOPS * 1e3
+    lib_in = [t.transpose(1, 2).detach().requires_grad_() for t in (qt, kt, vt)]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*lib_in, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, lib_in, gt.transpose(1, 2))
+
+    kernels[1]["training_shape"] = {
+        "shape": f"q {tuple(qt.shape)}, k/v {tuple(kt.shape)}, causal (qwen3-1.7b train)",
+        "ms": graph_ms(lambda: flash_attention_cuda(qt, kt, vt, scale=Dt**-0.5)),
+        "plain_ms": timed_ms(lambda: flash_attention_plain(qt, kt, vt, scale=Dt**-0.5)),
+        "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt.transpose(1, 2), kt.transpose(1, 2),
+                                                                      vt.transpose(1, 2), is_causal=True,
+                                                                      enable_gqa=True)),
+        "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+        "recompute_backward_ms": timed_ms(lambda: flash_attention_ref_vjp(qt, kt, vt, gt, scale=Dt**-0.5)),
+        "library_fwd_bwd_ms": timed_ms(sdpa_fwd_bwd),
+    }
+    ts = kernels[1]["training_shape"]
+    print(f"flash_attention_fwd at the training shape ({ts['shape']}): {ts['ms']:.5f} ms device, bound "
+          f"{ts['bound_ms']:.5f} ms by {ts['bound_by']}, plain {ts['plain_ms']:.4f} ms, SDPA {ts['library_ms']:.5f} ms; "
+          f"recompute backward {ts['recompute_backward_ms']:.4f} ms, SDPA forward + backward "
+          f"{ts['library_fwd_bwd_ms']:.4f} ms ({card})")
+    del qt, gt, kt, vt, lib_in
     jamba_name = f"jamba-1.5-large-398b ({record['jamba']['serve']['layers']} layers)"
     kernels[2]["launches_by_path"] = {"xlstm-1.3b serve": xlaunches["ssm_scan"],
                                       f"{jamba_name} serve": serves[jamba_name]["launches"]["ssm_scan"]}

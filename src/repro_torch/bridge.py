@@ -9,7 +9,9 @@ leading ``num_periods`` axis per period slot ``b{j}``, and the port keeps
 one dict per layer, layer ``i = n * period + j``; the other entries
 (``embed``, ``lm_head``, ``final_norm``, a frontend's ``{"proj": ...}``)
 come across as they are. Caches go the other way: the port stacks each
-kind of state over the layers of that kind.
+kind of state over the layers of that kind. An optimizer state ``{"step",
+"mu", "nu"}`` comes across with its moments as params, and JAX gradients,
+which share the params' tree, through ``params_from_jax``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,16 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu", dtype=None) -> d
     out = {k: _map(v, lambda a: _tensor(a, device, dtype)) for k, v in tree.items() if k != "layers"}
     out["layers"] = layers
     return out
+
+
+def opt_state_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
+    """The JAX AdamW state (numpy leaves) as the port's: ``mu`` and ``nu``
+    as param trees in their own dtype, ``step`` a 0-d int32 tensor."""
+    return {
+        "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32, device=device),
+        "mu": params_from_jax(tree["mu"], cfg, device),
+        "nu": params_from_jax(tree["nu"], cfg, device),
+    }
 
 
 def _stack(trees: list):

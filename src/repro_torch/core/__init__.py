@@ -21,12 +21,13 @@ router      — cross-replica request routing (round_robin | capacity_weighted
               by run_fleet and launch/fleet.py
 autoscale   — replica-pool autoscaling, shared by run_fleet and
               launch/fleet.py
-
-The het-DP training coordinator (``HetCoordinator``, ``PodRuntime``) is not
-ported yet.
+coordinator — jobtracker analogue: the het-DP training step end to end
+              (``HetCoordinator``, ``PodRuntime``, ``StepReport``), used
+              by launch/train.py
 """
 
 from repro_torch.core.capacity import CapacityEstimator, NodeProfile, PodProfile  # noqa: F401
+from repro_torch.core.coordinator import HetCoordinator, PodRuntime, StepReport  # noqa: F401
 from repro_torch.core.heartbeat import Command, Heartbeat, HeartbeatMonitor  # noqa: F401
 from repro_torch.core.namespace import Namespace, ShardedNamespace  # noqa: F401
 from repro_torch.core.placement import (  # noqa: F401

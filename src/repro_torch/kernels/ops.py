@@ -8,10 +8,12 @@
 A wrapper runs its kernel's plain PyTorch version for tensors on the CPU
 (the tests) and launches the CUDA kernel for tensors on the card, raising
 if the kernel does not take them; there is no fallback from one to the
-other. ``LAUNCHES`` counts kernel launches per wrapper, so a run can show
-that its main path went through the kernels. K1 and K2 read the tensors
-in the model's layout through strides; ``ssm_scan`` folds batch and heads
-into the kernel's row axis (a copy), as the JAX package's wrapper does.
+other. ``LAUNCHES`` counts kernel launches per wrapper (forward launches:
+K2's backward is a recompute in plain PyTorch, as in the JAX package), so
+a run can show that its main path went through the kernels. K1 and K2
+read the tensors in the model's layout through strides; ``ssm_scan``
+folds batch and heads into the kernel's row axis (a copy), as the JAX
+package's wrapper does.
 """
 
 from __future__ import annotations
@@ -21,7 +23,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda,
+    flash_attention_plain,
+    flash_attention_ref_vjp,
+)
 from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain, unfold
 
 LAUNCHES = {"decode_attention": 0, "flash_attention": 0, "ssm_scan": 0}
@@ -32,6 +38,30 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K2's forward; the backward is the reference's VJP under recompute
+    (``flash_attention_ref_vjp``), as the JAX package's ``custom_vjp``
+    pairs them. Only the forward launches the kernel and counts."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset: int, window: int, scale: float):
+        if q.device.type == "cpu":
+            out = flash_attention_plain(q, k, v, q_offset=q_offset, window=window, scale=scale)
+        else:
+            out = flash_attention_cuda(q, k, v, q_offset=q_offset, window=window, scale=scale)
+            LAUNCHES["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (q_offset, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        q_offset, window, scale = ctx.args
+        dq, dk, dv = flash_attention_ref_vjp(q, k, v, g, q_offset=q_offset, window=window, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -40,13 +70,11 @@ def flash_attention(
     window: int = 0,
     softmax_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Causal attention forward; q (B, Sq, H, D), k/v (B, Sk, KH, D)."""
+    """Causal attention; q (B, Sq, H, D), k/v (B, Sk, KH, D). Differentiable
+    on both devices: the forward is K2 (its plain version on the CPU), the
+    backward recomputes the reference under autograd."""
     scale = softmax_scale if softmax_scale is not None else 1.0 / q.shape[-1] ** 0.5
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, q_offset=q_offset, window=window, scale=scale)
-    out = flash_attention_cuda(q, k, v, q_offset=q_offset, window=window, scale=scale)
-    LAUNCHES["flash_attention"] += 1
-    return out
+    return _FlashAttention.apply(q, k, v, q_offset, window, scale)
 
 
 def decode_attention(

@@ -3,7 +3,9 @@
 Port of ``repro/models/common.py``. A parameter is declared once as a
 :class:`ParamDef` (shape + init); :func:`build_params` materialises a tree
 of them on a ``torch.Generator``. The JAX package's logical sharding axes
-are dropped: the port does not shard.
+are dropped: the port does not shard. ``tree_leaves``, ``tree_map`` and
+``tree_unflatten`` stand in for ``jax.tree`` in the optimizer, the
+training steps and the checkpoints.
 """
 
 from __future__ import annotations
@@ -88,6 +90,43 @@ def param_count(defs) -> int:
         return math.prod(defs.shape)
     items = defs.values() if isinstance(defs, dict) else defs
     return sum(param_count(v) for v in items)
+
+
+# --- trees of tensors -----------------------------------------------------------
+# A tree is nested dicts, lists and tuples; every other value is a leaf. Dicts
+# are walked in sorted key order (as ``jax.tree`` walks them), so an order of
+# leaves depends on the keys alone, never on a device or an insertion order.
+
+
+def tree_leaves(tree, is_leaf=None) -> list:
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k], is_leaf)]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t, is_leaf)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest, is_leaf=None):
+    """``fn`` over the leaves of ``tree`` and the matching nodes of ``rest``."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf) for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_unflatten(template, leaves: list):
+    """The tree of ``template``'s structure whose leaves, in
+    :func:`tree_leaves` order, are ``leaves``."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), template)
+    if next(it, it) is not it:
+        raise ValueError("tree_unflatten: more leaves than the template holds")
+    return out
 
 
 # ---------------------------------------------------------------------------

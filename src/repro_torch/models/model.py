@@ -35,6 +35,7 @@ Three entry points mirror the workload kinds:
   forward()      — training forward (logits + aux metrics)
   prefill()      — forward + cache construction
   decode_step()  — one token with cache
+and ``lm_loss`` is the training loss on the forward's logits.
 """
 
 from __future__ import annotations
@@ -342,3 +343,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
         one = ssm.mamba_init_cache(cfg, batch, device)
         cache["mamba"] = {k: t.expand(counts["mamba"], *t.shape).contiguous() for k, t in one.items()}
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(cfg: ModelConfig, run: RunConfig, logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor], aux: dict):
+    """Causal-LM cross entropy + z-loss + MoE aux; labels aligned to
+    logits. The cross entropy is taken from fp32 logits (logsumexp, gold
+    logit gathered). Returns ``(total, metrics)`` with the reference's
+    keys: ``loss``, ``ce``, ``z_loss`` and the forward's aux metrics."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = (nll * mask).sum() / denom
+    zl = run.z_loss * ((lse**2) * mask).sum() / denom
+    total = ce + zl + run.moe_aux_loss * aux.get("moe_aux", 0.0)
+    metrics = {"loss": total, "ce": ce, "z_loss": zl, **aux}
+    return total, metrics

@@ -475,3 +475,37 @@ def test_decode_kernel_batch_invariant_on_card(cuda, S, normalize):
                                       normalize=normalize)
         for a, b in zip(whole, alone):
             assert torch.equal(a[i:i + 1], b)
+
+
+# K2's gradient on the card: the kernel's forward, the reference's recompute
+# backward (chip_smoke.k2_grad_check), at a small shape, at qwen3's training
+# shape (2 x 1024, 16 q heads on 8 KV heads of 128) and at a window with a
+# query offset, held against autograd through the plain forward
+K2_CARD_GRAD_CASES = [((2, 128, 4, 2, 64), 0, 0), ((2, 1024, 16, 8, 128), 0, 0), ((1, 100, 4, 2, 128), 70, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K2_CARD_GRAD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_grad_matches_plain_autograd_on_card(cuda, case, dtype):
+    from chip_smoke import k2_grad_check
+
+    shape, window, q_offset = case
+    r = k2_grad_check(torch.Generator(device=cuda).manual_seed(15), shape, DTYPES[dtype], window=window,
+                      q_offset=q_offset)
+    assert r["grad_fn"] and r["forward_launches"] == 1 and r["backward_launches"] == 0 and r["dtype_kept"], r
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
+def test_flash_attention_on_card_does_not_detach(cuda):
+    """For CUDA tensors that require a gradient the kernel's output carries
+    a ``grad_fn``, and every input gets a gradient: nothing detaches."""
+    rng = np.random.default_rng(16)
+    q = _on(cuda, rng, 1, 64, 4, 64, dtype="bfloat16").requires_grad_()
+    k, v = (_on(cuda, rng, 1, 64, 2, 64, dtype="bfloat16").requires_grad_() for _ in range(2))
+    out = ops.flash_attention(q, k, v)
+    assert out.requires_grad and out.grad_fn is not None
+    out.float().square().sum().backward()
+    assert all(t.grad is not None and t.grad.dtype == torch.bfloat16 and bool(t.grad.abs().sum() > 0)
+               for t in (q, k, v))
