@@ -12,13 +12,16 @@ Contract of both: q ``(B, Sq, H, D)``; k, v ``(B, Sk, KH, D)``; query row
 probabilities written as exact zeros; output in q's dtype.
 
 The kernel is a forward. Its gradient, as in the JAX package
-(``repro/kernels/ops.py::_flash_bwd_rule``), is the VJP of the reference
-function under recompute: :func:`flash_attention_ref_vjp` rebuilds
-:func:`flash_attention_ref` (the port of ``repro/kernels/ref.py::
-flash_attention_ref``) from the saved q, k, v and differentiates it with
-autograd. That is plain PyTorch on the card too, as the reference computes
-its backward outside any Pallas kernel. ``kernels/ops.py`` wires the two
-into one ``torch.autograd.Function``.
+(``repro/kernels/ops.py::_flash_bwd_rule``, the VJP of
+``repro/kernels/ref.py::flash_attention_ref``), is taken under recompute:
+:func:`flash_attention_ref_vjp` rebuilds :func:`flash_attention_plain`
+from the saved q, k, v and differentiates it with autograd. The plain
+version is the reference's function (fp32 scores, ``NEG_INF`` mask,
+softmax) with fully masked rows written as zeros, as the kernel writes
+them, so the backward differentiates the function the forward computes.
+That is plain PyTorch on the card too, as the reference computes its
+backward outside any Pallas kernel. ``kernels/ops.py`` wires the two into
+one ``torch.autograd.Function``.
 
 On the card bf16 runs on the tensor cores (``wgmma`` on 64 x 64 tiles
 copied in by 16-byte ``cp.async``), so q, k and v must be 16-byte aligned
@@ -58,33 +61,16 @@ def flash_attention_plain(q, k, v, *, q_offset: int = 0, window: int = 0, scale:
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
-def flash_attention_ref(q, k, v, *, q_offset: int = 0, window: int = 0, scale: float):
-    """The JAX package's oracle: fp32 scores, masked to ``NEG_INF``,
-    softmax, fp32 product with v; output in q's dtype."""
-    b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    qg = q.reshape(b, sq, kh, h // kh, d).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = kpos <= qpos
-    if window:
-        mask &= kpos > qpos - window
-    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(b, sq, h, d).to(q.dtype)
-
-
 def flash_attention_ref_vjp(q, k, v, g, *, q_offset: int = 0, window: int = 0, scale: float):
-    """``(dq, dk, dv)`` of :func:`flash_attention_ref` at ``q, k, v`` for the
-    output cotangent ``g``, in the inputs' dtypes: the reference's function
+    """``(dq, dk, dv)`` of :func:`flash_attention_plain` at ``q, k, v`` for
+    the output cotangent ``g``, in the inputs' dtypes: the function
     recomputed under autograd (its O(Sq·Sk) fp32 scores are rebuilt here
     and freed on return), as ``repro/kernels/ops.py::_flash_bwd_rule``
-    takes ``jax.vjp`` of it. Plain PyTorch on every device: the reference
-    has no backward kernel."""
+    takes ``jax.vjp`` of the reference's oracle. Plain PyTorch on every
+    device: the reference has no backward kernel."""
     with torch.enable_grad():
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-        out = flash_attention_ref(qr, kr, vr, q_offset=q_offset, window=window, scale=scale)
+        out = flash_attention_plain(qr, kr, vr, q_offset=q_offset, window=window, scale=scale)
         return torch.autograd.grad(out, (qr, kr, vr), g)
 
 

@@ -39,9 +39,10 @@ def reset_launches() -> None:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K2's forward; the backward is the reference's VJP under recompute
-    (``flash_attention_ref_vjp``), as the JAX package's ``custom_vjp``
-    pairs them. Only the forward launches the kernel and counts."""
+    """K2's forward; the backward is the VJP of its plain version under
+    recompute (``flash_attention_ref_vjp``), as the JAX package's
+    ``custom_vjp`` pairs the kernel with its oracle's VJP. Only the forward
+    launches the kernel and counts."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset: int, window: int, scale: float):
@@ -72,7 +73,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Causal attention; q (B, Sq, H, D), k/v (B, Sk, KH, D). Differentiable
     on both devices: the forward is K2 (its plain version on the CPU), the
-    backward recomputes the reference under autograd."""
+    backward recomputes the plain version under autograd."""
     scale = softmax_scale if softmax_scale is not None else 1.0 / q.shape[-1] ** 0.5
     return _FlashAttention.apply(q, k, v, q_offset, window, scale)
 

@@ -140,7 +140,9 @@ class ElasticController:
         async save still in flight is waited for first, so the restore
         takes the last checkpoint asked for; the reference lists only the
         saves its writer thread has finished, so it may take an older one
-        or none (ROADMAP C9)."""
+        or none (ROADMAP C9). The restored state becomes the template of
+        the next restore, so the controller holds no pre-restore tensor
+        (at full width, 20.7 GB of params and moments on the card)."""
         if not self._restore_requested or self.ckpt is None or self._template is None:
             return params, opt_state, False
         self.ckpt.wait()
@@ -153,6 +155,7 @@ class ElasticController:
             ElasticEvent(0.0, "restored", {"step": steps[-1], **info})
         )
         self._restore_requested = False
+        self._template = state
         return state["params"], state["opt_state"], True
 
     @property

@@ -133,11 +133,11 @@ def main(argv=None) -> dict:
             redundancy=args.ckpt_redundancy, async_save=True,
         )
         elastic = ElasticController(coord, checkpoints=ckpt)
-        elastic.set_restore_template(template())
         if args.restore and ckpt.steps():
             state, info = ckpt.restore(ckpt.steps()[-1], template())
             params, opt_state = state["params"], state["opt_state"]
             print(f"restored from step {info['step']}")
+        elastic.set_restore_template(template())  # the live state: it holds no other copy
     else:
         elastic = ElasticController(coord)
 

@@ -485,6 +485,31 @@ def test_restore_waits_for_an_async_save():
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(params), saved))
 
 
+def test_restore_keeps_no_pre_restore_tensor():
+    """Once the caller rebinds to the restored state, nothing holds the
+    params and moments it replaced: the controller's template becomes the
+    restored state, and a second death restores onto it."""
+    import gc
+    import weakref
+
+    coord, params, opt = _coordinator([1.0, 0.5, 0.5])
+    with tempfile.TemporaryDirectory() as d:
+        cm = CheckpointManager(d, num_nodes=4, num_shards=4)
+        elastic = ElasticController(coord, checkpoints=cm)
+        elastic.set_restore_template({"params": params, "opt_state": opt})
+        batches = batch_iterator(CFG, 32, 4, seed=0)
+        params, opt, _ = coord.step(params, opt, batches)
+        cm.save(1, {"params": params, "opt_state": opt})
+        for dead in ("pod1", "pod2"):
+            old = [weakref.ref(t) for t in tree_leaves({"params": params, "opt_state": opt})]
+            params, opt, _ = coord.step(params, opt, batches)
+            coord.monitor.pronounce(dead, coord._vtime)
+            params, opt, restored = elastic.maybe_restore(params, opt)
+            gc.collect()
+            assert restored and int(opt["step"]) == 1
+            assert not any(r() is not None for r in old), f"pre-restore tensors alive after losing {dead}"
+
+
 # ----------------------------------------------------------------- the entry point
 
 
