@@ -125,12 +125,36 @@ toolkit: ``python3 chip_smoke.py``. It
    a checkpoint of CUDA tensors restored bit for bit with a node lost, and
    a smoke run that loses a pod at step 3, restores and goes on over a
    re-proportioned schedule;
-18. prints one ``{"kernels": [...]}`` line with times and bounds (and the
+18. (right after phase 17) trains the SSM families: K3 at the training
+   shapes (xlstm's folded x (8, 1024, 513), Mamba's (256, 2048, 128) with
+   c shared by the heads), bf16 and fp32, against its plain version summed
+   in fp64 (y against the terms it sums, h against its own scale), and a
+   backward through ``ops.ssm_scan`` (one forward launch, none in the
+   backward, every input a finite gradient equal to plain autograd's);
+   K3 timed at xlstm's training shape beside its recompute backward;
+   xlstm-1.3b at full width through ``repro_torch.launch.train.main``,
+   pods 1.0 and 0.5, 3 microbatches of 2 x 1024 a step, 3 steps, as
+   phase 17 measures qwen3, with CUDA events around each K3 forward, each
+   K3 recompute backward and each sLSTM block's forward and backward; it
+   checks K3 = 42 x grad microbatches, finite losses and a non-zero
+   gradient for every parameter; then one fp32 grad step of
+   xlstm cut to one period (7 mLSTM + 1 sLSTM) and of jamba-smoke's period
+   widened to d_model 256 (K2 and K3 both run) on the kernel path, the
+   plain path and the plain path in fp64: the kernel path's gradients no
+   further from fp64 than ``SSM_GRAD_MARGIN`` times the plain path's;
+19. (right after phase 18) trains moonshot-v1-16b-a3b at published widths
+   cut to 3 layers (its dropped share and aux loss per microbatch at the
+   training capacity factor) and musicgen-medium at full width (8 prefix
+   frames before each microbatch's tokens) as phase 17 trains qwen3; one
+   qwen3-1.7b grad microbatch under ``remat`` "none" (twice), "full" and
+   "dots" (ms, peak, K2 launches, gradients against "none"); and the
+   ``-smoke`` config of every arch, at d_model 256, for 2 steps;
+20. prints one ``{"kernels": [...]}`` line with times and bounds (and the
    launches of each serve path and of training; for K1 and K2 the times at
-   each head grouping, K2 also at the training shape, for K3 at the Mamba
-   shape), the seconds of each phase, the card line, and last ``{"ok":
-   true, "device": {...}}``. ``--out FILE`` also writes every measurement
-   to FILE as JSON.
+   each head grouping, K2 and K3 also at the training shape, K3 at the
+   Mamba shape), the seconds of each phase, the card line, and last
+   ``{"ok": true, "device": {...}}``. ``--out FILE`` also writes every
+   measurement to FILE as JSON.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 at once.
@@ -633,6 +657,24 @@ def plain_scan(x, loga, b, c, chunk=256):
 
     y, h = k3_exact(*fold(x, loga, b, c, chunk), chunk)
     return unfold(y, h, x.shape[0], x.shape[1], x.shape[-1], b.shape[-1])
+
+
+def k3_inputs(gen, B, S, H, P, N, dtype, loga="gate", b_dtype=torch.float32, gate_sd=1.0):
+    """mLSTM-like K3 inputs in the model layout, on ``gen``'s device: x
+    with a ones column last (the normaliser), b = k * exp(input gate), the
+    gate's log ~ N(0, gate_sd^2) clamped at +-10 as the model clamps it (1
+    is what the model's random weights give; 3 reaches e^10), loga = log
+    sigmoid of an open forget gate (or 0, or ~ -5)."""
+    dev = gen.device
+    x = torch.randn(B, S, H, P, generator=gen, device=dev).to(dtype)
+    x[..., -1] = 1
+    c = torch.randn(B, S, H, N, generator=gen, device=dev).to(dtype)
+    gate = torch.exp((gate_sd * torch.randn(B, S, H, 1, generator=gen, device=dev)).clamp(-10, 10))
+    b = (torch.randn(B, S, H, N, generator=gen, device=dev) / N**0.5 * gate).to(b_dtype)
+    noise = torch.randn(B, S, H, generator=gen, device=dev)
+    la = {"gate": torch.nn.functional.logsigmoid(3 + noise), "zero": torch.zeros_like(noise),
+          "neg5": -5 + 0.1 * noise}[loga]
+    return x, la, b, c
 
 
 def k3_bit_checks(f, rows: int) -> dict:
@@ -1531,28 +1573,36 @@ def k2_grad_check(gen, shape, dtype, window: int = 0, q_offset: int = 0) -> dict
 
 
 @contextlib.contextmanager
-def stepping(cfg, held_losses: list, walls: list):
+def stepping(cfg, held_losses: list, walls: list, held_out: int = HELD_OUT):
     """Patch ``HetCoordinator.step`` to record the host seconds of each
     global step (the step ends in a host sync: its metrics) in ``walls``,
-    and the mean loss of HELD_OUT fixed microbatches of 2 x 1024 tokens
-    (seed HELD_OUT_SEED) before the first step and after each in
-    ``held_losses``, on the plain path (no K2 launch, no span)."""
+    and the mean loss of ``held_out`` fixed microbatches of 2 x 1024 tokens
+    (seed HELD_OUT_SEED; a frontend's 8 prefix features before them, as
+    the trainer feeds them) before the first step and after each in
+    ``held_losses``, on the plain path: chunked attention, the plain scan
+    (:func:`plain_scan`) and the sLSTM block as it was when this was
+    entered, so no kernel launches and no span is recorded there."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.core.coordinator import HetCoordinator
     from repro_torch.data.dataset import batch_iterator
+    from repro_torch.kernels import ops
     from repro_torch.models import model as M
+    from repro_torch.models import ssm
 
-    held = [b for _, b in zip(range(HELD_OUT), batch_iterator(cfg, 1024, 2, seed=HELD_OUT_SEED))]
+    batches = batch_iterator(cfg, 1024, 2, seed=HELD_OUT_SEED, frontend_prefix=8 if cfg.frontend else 0)
+    held = [b for _, b in zip(range(held_out), batches)]
     plain_run = RunConfig(remat="none", attention_impl="chunked")
-    coord_step = HetCoordinator.step
+    coord_step, slstm = HetCoordinator.step, ssm.slstm_apply_full
 
     @torch.no_grad()
     def held_out_loss(params):
         total = 0.0
-        for b in held:
-            toks = torch.as_tensor(b["tokens"], device=params["embed"].device).long()
-            logits, aux = M.forward(cfg, plain_run, params, toks)
-            total += float(M.lm_loss(cfg, plain_run, logits[:, :-1], toks[:, 1:], None, aux)[0])
+        dev = params["embed"].device
+        with mock.patch.object(ops, "ssm_scan", plain_scan), mock.patch.object(ssm, "slstm_apply_full", slstm):
+            for b in held:
+                b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+                logits, aux = M.forward(cfg, plain_run, params, b["tokens"].long(), b.get("prefix_features"))
+                total += float(M.lm_loss(cfg, plain_run, logits[:, :-1], b["labels"][:, 1:].long(), None, aux)[0])
         return total / len(held)
 
     def step(self, params, *args):
@@ -1566,6 +1616,164 @@ def stepping(cfg, held_losses: list, walls: list):
 
     with mock.patch.object(HetCoordinator, "step", step):
         yield
+
+
+class _BackwardMark(torch.autograd.Function):
+    """The identity, recording a CUDA event into ``sink`` when its
+    gradient passes in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, sink):
+        ctx.sink = sink
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        ctx.sink.append(event)
+        return g, None
+
+
+def spanned(spans: dict, key: str, fn, backward: bool = False, training_only: bool = True):
+    """``fn`` with CUDA events around each call, appended as a pair to
+    ``spans[key]`` (with ``training_only``, calls with gradients off, such
+    as a held-out loss's, are not recorded). With ``backward`` (for a block
+    ``fn(cfg, params, x)``), also the span of its backward, from the
+    gradient reaching its output to the gradient leaving for x, in
+    ``spans[key + "_bwd"]`` (the residual add around the block is outside
+    both)."""
+    def call(*args, **kwargs):
+        if training_only and not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        ends, starts = [], []
+        if backward:
+            args = (*args[:2], _BackwardMark.apply(args[2], ends), *args[3:])
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kwargs)
+        b.record()
+        spans[key].append((a, b))
+        if backward:
+            out = _BackwardMark.apply(out, starts)
+            spans[key + "_bwd"].append((starts, ends))
+        return out
+    return call
+
+
+def timed_train(argv, cfg, spies: dict, held_out: int = HELD_OUT, blocks: dict | None = None) -> dict:
+    """``repro_torch.launch.train.main(argv)`` with CUDA events around each
+    grad microbatch, each update and each call of ``spies`` (key ->
+    (module, name)), and, for each of ``blocks`` (key -> (module, name) of
+    a block function), around its forward and its backward; the host clock
+    around each global step; held-out losses as :func:`stepping` takes
+    them; each microbatch's metrics; whether the first microbatch gave
+    every leaf a non-zero gradient; the launches and the peak. Returns the
+    record, with each span's share of a microbatch and its median ms over
+    the microbatches after the first step's (those warm up)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    blocks = blocks or {}
+    spans = {"grad": [], "update": [], **{k: [] for k in spies}, **{k + s: [] for k in blocks for s in ("", "_bwd")}}
+    walls, zero_grads, mb_metrics, mb_tokens, held_losses = [], {}, [], [], []
+    make = train_mod.make_grad_step
+
+    def make_timed(cfg_, run):
+        step = spanned(spans, "grad", make(cfg_, run), training_only=False)
+
+        def grad_step(params, batch):
+            grads_, metrics = step(params, batch)
+            mb_metrics.append(metrics)
+            mb_tokens.append(batch["labels"].size)  # a frontend's prefix positions included
+            if not zero_grads:  # once, outside the timed span: every leaf got a gradient
+                named = list(named_leaves(grads_))
+                nonzero = torch.stack([(t != 0).any() for _, t in named]).tolist()
+                zero_grads.update(leaves=len(named), zero=[p for (p, _), nz in zip(named, nonzero) if not nz])
+            return grads_, metrics
+        return grad_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(stepping(cfg, held_losses, walls, held_out))
+        stack.enter_context(mock.patch.object(train_mod, "make_grad_step", make_timed))
+        stack.enter_context(mock.patch.object(adamw, "adamw_update", spanned(spans, "update", adamw.adamw_update,
+                                                                             training_only=False)))
+        for key, (mod, name) in spies.items():
+            # a backward runs with gradients off: its spans are recorded always
+            stack.enter_context(mock.patch.object(mod, name, spanned(spans, key, getattr(mod, name),
+                                                                     training_only=not key.endswith("_bwd"))))
+        for key, (mod, name) in blocks.items():
+            stack.enter_context(mock.patch.object(mod, name, spanned(spans, key, getattr(mod, name), backward=True)))
+        res = train_mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, peak = dict(ops.LAUNCHES), torch.cuda.max_memory_allocated()
+    ms = {k: [a.elapsed_time(b) if isinstance(a, torch.cuda.Event) else a[0].elapsed_time(b[0]) for a, b in v]
+          for k, v in spans.items()}
+    hist = res["history"]
+    mbs = len(ms["grad"])
+    first_mb = sum(hist[0]["schedule"])
+    steady = range(first_mb, mbs)
+    rec = {
+        "args": argv, "params": M.count_params_exact(cfg), "losses": [h["loss"] for h in hist],
+        "held_out_losses": held_losses, "grad_norms": [h["grad_norm"] for h in hist],
+        "schedules": [h["schedule"] for h in hist], "virtual_s": [h["virtual_s"] for h in hist],
+        "homo_s": [h["homo_s"] for h in hist], "grad_microbatches": mbs, "launches": launches, "peak_bytes": peak,
+        "wall_s": wall, "step_wall_s": walls, "microbatch_ms": ms["grad"], "update_ms": ms["update"],
+        "microbatch_ms_median": float(np.median([ms["grad"][i] for i in steady])),
+        "update_ms_median": float(np.median(ms["update"][1:])), "step_s_median": float(np.median(walls[1:])),
+        "microbatch_metrics": [{k: float(v) for k, v in m.items()} for m in mb_metrics],
+        "zero_grad_leaves": zero_grads, "calls": {}, "share": {}, "ms_median": {},
+    }
+    rec["tokens_per_s"] = sum(mb_tokens) / len(hist) / rec["step_s_median"]
+    for key in ms.keys() - {"grad", "update"}:
+        n, rem = divmod(len(ms[key]), mbs)
+        rec["calls"][key] = len(ms[key])
+        if n and not rem:  # the same number of calls in every microbatch
+            rec["share"][key] = float(np.mean([sum(ms[key][i * n:(i + 1) * n]) / ms["grad"][i] for i in steady]))
+            rec["ms_median"][key] = float(np.median(ms[key][first_mb * n:]))
+    return rec
+
+
+def print_train(name: str, rec: dict, card: str) -> None:
+    for i, (loss, norm, sched) in enumerate(zip(rec["losses"], rec["grad_norms"], rec["schedules"])):
+        print(f"train {name} step {i}: loss {loss:.4f}, grad norm {norm:.4f}, schedule {sched}, het "
+              f"{rec['virtual_s'][i]:.2f} s, homo {rec['homo_s'][i]:.2f} s (virtual)")
+    parts = "; ".join(f"{rec['calls'][k] // rec['grad_microbatches']} x {k} {rec['share'][k]:.1%} of a microbatch "
+                      f"({rec['ms_median'][k]:.4f} ms each)" for k in sorted(rec["share"]))
+    print(f"train {name} ({rec['params']} params, fp32 master weights, bf16 compute; {' '.join(rec['args'])}) on "
+          f"{card}: {rec['microbatch_ms_median']:.1f} ms per grad microbatch, {rec['update_ms_median']:.1f} ms per "
+          f"update, {rec['step_s_median']:.3f} s per step, {rec['tokens_per_s']:.0f} tok/s, peak "
+          f"{rec['peak_bytes'] / 2**30:.2f} GiB; {parts}; launches {rec['launches']}")
+    print(f"train {name} held-out loss before the first step and after each: "
+          + ", ".join(f"{x:.4f}" for x in rec["held_out_losses"]))
+
+
+def check_train(name: str, rec: dict, cfg, kernel: str, per_microbatch: int, falls: bool = False) -> None:
+    """Finite losses and held-out losses (with ``falls``, a held-out loss
+    that falls), ``kernel`` launched ``per_microbatch`` times a grad
+    microbatch (a forward each), and a non-zero gradient for every
+    parameter. Three steps, as phases 18 and 19 run, are still in the
+    learning-rate warmup (5 steps) and move the held-out loss less than
+    it moves between batches, so only phase 17's six steps are held to a
+    fall."""
+    from repro_torch.models import model as M
+
+    losses, held = rec["losses"], rec["held_out_losses"]
+    check(all(np.isfinite(losses + held)) and len(held) == len(losses) + 1 and (held[-1] < held[0] or not falls),
+          f"{name} training: losses {losses}, held-out losses {held}")
+    check(rec["launches"][kernel] == per_microbatch * rec["grad_microbatches"],
+          f"{name}: {kernel} launches {rec['launches'][kernel]} != {per_microbatch} x {rec['grad_microbatches']} "
+          "grad microbatches")
+    check(rec["zero_grad_leaves"].get("leaves") == len(list(named_leaves(M.model_defs(cfg))))
+          and not rec["zero_grad_leaves"]["zero"], f"{name}: every parameter got a non-zero gradient: "
+          f"{rec['zero_grad_leaves']}")
 
 
 def train_phase(card: str) -> dict:
@@ -1607,96 +1815,17 @@ def train_phase(card: str) -> dict:
     free_card()
 
     # -- qwen3-1.7b at full width through train.main ------------------------
-    spans = {"grad": [], "update": [], "k2_fwd": [], "k2_bwd": []}
-    walls, zero_grads = [], {}
-
-    def timed(key, fn):
-        def call(*args, **kwargs):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            res = fn(*args, **kwargs)
-            b.record()
-            spans[key].append((a, b))
-            return res
-        return call
-
-    make = train_mod.make_grad_step
-
-    def make_timed(cfg, run):
-        step = timed("grad", make(cfg, run))
-
-        def grad_step(params, batch):
-            grads_, metrics = step(params, batch)
-            if not zero_grads:  # once, outside the timed span: every leaf got a gradient
-                named = list(named_leaves(grads_))
-                nonzero = torch.stack([(t != 0).any() for _, t in named]).tolist()
-                zero_grads.update(leaves=len(named), zero=[p for (p, _), nz in zip(named, nonzero) if not nz])
-            return grads_, metrics
-        return grad_step
-
     cfg = get_config("qwen3-1.7b")
-    held_losses = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    with mock.patch.object(train_mod, "make_grad_step", make_timed), \
-            mock.patch.object(adamw, "adamw_update", timed("update", adamw.adamw_update)), \
-            mock.patch.object(ops, "flash_attention", timed("k2_fwd", ops.flash_attention)), \
-            mock.patch.object(ops, "flash_attention_ref_vjp", timed("k2_bwd", ops.flash_attention_ref_vjp)), \
-            stepping(cfg, held_losses, walls):
-        res = train_mod.main(TRAIN_ARGS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, peak = dict(ops.LAUNCHES), torch.cuda.max_memory_allocated()
-    L, mbs = cfg.num_layers, len(spans["grad"])
-    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
-    hist = res["history"]
-    losses = [h["loss"] for h in hist]
-    first_mb = sum(hist[0]["schedule"])  # the first step's microbatches warm up: left out of the medians
-    steady = range(first_mb, mbs)
-    share_fwd = [sum(ms["k2_fwd"][i * L:(i + 1) * L]) / ms["grad"][i] for i in steady]
-    share_bwd = [sum(ms["k2_bwd"][i * L:(i + 1) * L]) / ms["grad"][i] for i in steady]
-    tokens_per_step = 3 * 2 * 1024
-    train = {
-        "args": TRAIN_ARGS, "params": M.count_params_exact(cfg), "losses": losses, "held_out_losses": held_losses,
-        "grad_norms": [h["grad_norm"] for h in hist], "schedules": [h["schedule"] for h in hist],
-        "virtual_s": [h["virtual_s"] for h in hist], "homo_s": [h["homo_s"] for h in hist],
-        "grad_microbatches": mbs, "launches": launches, "peak_bytes": peak, "wall_s": wall,
-        "step_wall_s": walls, "microbatch_ms": ms["grad"], "update_ms": ms["update"],
-        "microbatch_ms_median": float(np.median([ms["grad"][i] for i in steady])),
-        "update_ms_median": float(np.median(ms["update"][1:])),
-        "step_s_median": float(np.median(walls[1:])),
-        "k2_forward_share": float(np.mean(share_fwd)), "recompute_backward_share": float(np.mean(share_bwd)),
-        "k2_forward_ms_median": float(np.median(ms["k2_fwd"][first_mb * L:])),
-        "recompute_backward_ms_median": float(np.median(ms["k2_bwd"][first_mb * L:])),
-        "zero_grad_leaves": zero_grads,
-    }
-    train["tokens_per_s"] = tokens_per_step / train["step_s_median"]
-    for h in hist:
-        print(f"train qwen3-1.7b step {h['step']}: loss {h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, "
-              f"schedule {h['schedule']}, het {h['virtual_s']:.2f} s, homo {h['homo_s']:.2f} s (virtual)")
-    print(f"train qwen3-1.7b ({train['params']} params, fp32 master weights, bf16 compute, pods 1.0 and 0.5, "
-          f"3 microbatches of 2 x 1024 a step) on {card}: {train['microbatch_ms_median']:.1f} ms per grad "
-          f"microbatch, {train['update_ms_median']:.1f} ms per update, {train['step_s_median']:.3f} s per step, "
-          f"{train['tokens_per_s']:.0f} tok/s, peak {peak / 2**30:.2f} GiB; {L} K2 forwards "
-          f"{train['k2_forward_share']:.1%} of a microbatch ({train['k2_forward_ms_median']:.4f} ms each), "
-          f"{L} recompute backwards {train['recompute_backward_share']:.1%} "
-          f"({train['recompute_backward_ms_median']:.3f} ms each); launches {launches}")
-    print(f"train qwen3-1.7b held-out loss ({HELD_OUT} fixed microbatches of 2 x 1024, seed {HELD_OUT_SEED}) before "
-          f"the first step and after each: " + ", ".join(f"{x:.4f}" for x in held_losses))
-    check(all(np.isfinite(losses + held_losses)) and len(held_losses) == len(losses) + 1
-          and held_losses[-1] < held_losses[0],
-          f"qwen3-1.7b training: losses {losses}, held-out losses {held_losses}")
-    check(mbs == sum(sum(h["schedule"]) for h in hist) == 18 and all(h["schedule"] == [2, 1] for h in hist),
-          f"qwen3-1.7b training schedules {train['schedules']}, {mbs} grad microbatches")
-    check(launches["flash_attention"] == L * mbs == len(ms["k2_fwd"]) and len(ms["k2_bwd"]) == L * mbs,
-          f"K2 launches {launches['flash_attention']} != {L} x {mbs} grad microbatches "
-          f"(recompute backwards {len(ms['k2_bwd'])})")
-    check(zero_grads.get("leaves") == len(list(named_leaves(M.model_defs(cfg)))) and not zero_grads["zero"],
-          f"every parameter got a non-zero gradient: {zero_grads}")
+    L = cfg.num_layers
+    train = timed_train(TRAIN_ARGS, cfg, {"k2_fwd": (ops, "flash_attention"),
+                                          "k2_bwd": (ops, "flash_attention_ref_vjp")})
+    print_train("qwen3-1.7b", train, card)
+    check_train("qwen3-1.7b", train, cfg, "flash_attention", L, falls=True)
+    check(train["grad_microbatches"] == 18 and all(h == [2, 1] for h in train["schedules"]),
+          f"qwen3-1.7b training schedules {train['schedules']}, {train['grad_microbatches']} grad microbatches")
+    check(train["calls"]["k2_fwd"] == train["calls"]["k2_bwd"] == L * train["grad_microbatches"],
+          f"K2 forwards and recompute backwards {train['calls']} != {L} x {train['grad_microbatches']}")
     out["train"] = train
-    del res
     free_card()
 
     # -- the fp32 one-step check at a cut depth -----------------------------
@@ -1775,6 +1904,372 @@ def train_phase(card: str) -> dict:
           f"elastic restore and re-proportioned schedule: {out['checkpoint']}")
     del params, opt, state
     free_card()
+    return out
+
+
+# -- 18. SSM training -------------------------------------------------------
+# xlstm-1.3b at full width through launch.train.main: pods 1.0 and 0.5, 3
+# microbatches of 2 x 1024 a step, 3 steps, the trainer's lr (3e-4). Its
+# 6 sLSTM layers run a Python time loop in the forward and the backward, so
+# a microbatch takes seconds: the held-out loss is taken on 2 microbatches.
+XLSTM_TRAIN_ARGS = ["--arch", "xlstm-1.3b", "--steps", "3", "--batch", "2", "--seq", "1024", "--microbatches", "3",
+                    "--pods", "1.0,0.5", "--log-every", "100", "--device", "cuda"]
+XLSTM_HELD_OUT = 2
+# K3 at the training shapes: xlstm's mLSTM scan at 2 x 1024 (folded x (8,
+# 1024, 513)) and Mamba's at 2 x 2048 (K3_MAMBA_SHAPE, c shared by the heads)
+K3_TRAIN_XLSTM, K3_TRAIN_MAMBA = (2, 1024, 4, 513, 512), (2, 2048)
+# The fp32 one-step checks at a cut depth on 2 x 1024 tokens: xlstm-1.3b
+# cut to one period (7 mLSTM + 1 sLSTM) and jamba-smoke's period widened to
+# d_model 256 (attention heads of 64, K2's narrowest; 4 Mamba heads of
+# 128). The kernel path (K2, K3, their recompute backwards) and the plain
+# path (chunked attention, the plain scan in fp32 under autograd) are each
+# held against the plain path in fp64 (the exact gradient to fp32's eyes):
+# the worst leaf's error over its largest |g|, at least GRAD_FLOOR (sLSTM's
+# input-gate biases get |g| ~ 1e-11, as in tests/test_torch_train.py). The
+# SSM stacks' fp32 gradients are ill-conditioned at random weights (on the
+# CPU at smoke size the reference's own are 1e-3 to 1e-2 of a leaf's scale
+# from fp64), so the kernel path is held no further from fp64 than
+# SSM_GRAD_MARGIN times the plain fp32 path is; a wrong kernel or backward
+# moves a gradient by O(|g|).
+SSM_CUT_LAYERS, GRAD_FLOOR, SSM_GRAD_MARGIN = 8, 1e-6, 2.0
+JAMBA_CUT_D_MODEL = 256
+
+
+def k3_grad_check(x, loga, b, c, chunk: int = 256) -> dict:
+    """A backward through ``ops.ssm_scan`` on CUDA tensors in the model
+    layout (c of shape (B, S, 1, N) where the heads share it, broadcast at
+    the call as the Mamba block does): the forward is one K3 launch and the
+    backward none; every input gets a finite gradient of its own dtype and
+    shape, equal to autograd through the plain version on the same inputs
+    (the same recompute: this checks the wiring)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import fold, ssm_scan_plain, unfold
+
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    got = [t.detach().clone().requires_grad_() for t in (x, loga, b, c)]
+    ref = [t.detach().clone().requires_grad_() for t in (x, loga, b, c)]
+    gy = torch.randn(x.shape, device=x.device).to(x.dtype)
+    before = ops.LAUNCHES["ssm_scan"]
+    y, _ = ops.ssm_scan(*got[:3], got[3].expand(B, S, H, N), chunk)
+    fwd = ops.LAUNCHES["ssm_scan"] - before
+    has_grad_fn = y.grad_fn is not None
+    y.backward(gy)
+    bwd = ops.LAUNCHES["ssm_scan"] - before - fwd
+    yf, hf = ssm_scan_plain(*fold(*ref[:3], ref[3].expand(B, S, H, N), chunk), chunk)
+    unfold(yf, hf, B, S, P, N)[0].backward(gy)
+    torch.cuda.synchronize()
+    grads = {n: (a.grad is not None and a.grad.dtype == a.dtype and a.grad.shape == a.shape
+                 and bool(torch.isfinite(a.grad).all()), a.grad is not None and torch.equal(a.grad, r.grad))
+             for n, a, r in zip(("dx", "dloga", "db", "dc"), got, ref)}
+    res = {"shape": f"x {tuple(x.shape)} {x.dtype}, b {tuple(b.shape)} {b.dtype}, c {tuple(c.shape)}",
+           "grad_fn": has_grad_fn, "forward_launches": fwd, "backward_launches": bwd,
+           "sound": {n: v[0] for n, v in grads.items()}, "equal_plain_autograd": {n: v[1] for n, v in grads.items()}}
+    res["ok"] = has_grad_fn and fwd == 1 and bwd == 0 and all(all(v) for v in grads.values())
+    return res
+
+
+def grad_worst(got, exp) -> float:
+    """The worst leaf's largest |got - exp| over its largest |exp|, at
+    least GRAD_FLOOR."""
+    from repro_torch.models.common import tree_leaves
+
+    return max(float((a.double() - b.double()).abs().max()) / max(float(b.abs().max()), GRAD_FLOOR)
+               for a, b in zip(tree_leaves(got), tree_leaves(exp)))
+
+
+def plain_scan_fp32(x, loga, b, c, chunk=256):
+    """The plain path's fp32 stand-in for ``ops.ssm_scan``: the plain
+    version on the folded inputs in their own dtypes (as the CPU runs it),
+    differentiated straight through by autograd."""
+    from repro_torch.kernels.ssm_scan import fold, ssm_scan_plain, unfold
+
+    y, h = ssm_scan_plain(*fold(x, loga, b, c, chunk), chunk)
+    return unfold(y, h, x.shape[0], x.shape[1], x.shape[-1], b.shape[-1])
+
+
+def ssm_cut_grad_check(cut, what: str) -> dict:
+    """One fp32 grad step of ``cut`` on random weights from seed 0 and 2 x
+    1024 tokens on the kernel path, the plain path, and the plain path in
+    fp64: the losses to 1e-5 of each other, and the kernel path's worst
+    gradient error against fp64 (:func:`grad_worst`) at most SSM_GRAD_MARGIN
+    times the plain fp32 path's. Frees the weights."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.dataset import batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_map
+
+    params = M.init_model(cut, torch.Generator(device="cuda").manual_seed(0))
+    batch = next(batch_iterator(cut, 1024, 2, seed=0))
+    kernel_run = RunConfig(remat="none", attention_impl="pallas", ssd_chunk=256)
+    plain_run = RunConfig(remat="none", attention_impl="chunked", ssd_chunk=256)
+    ops.reset_launches()
+    gk, mk = make_grad_step(cut, kernel_run)(params, batch)
+    launches = dict(ops.LAUNCHES)
+    with mock.patch.object(ops, "ssm_scan", plain_scan_fp32):
+        gp, mp = make_grad_step(cut, plain_run)(params, batch)
+    with mock.patch.object(ops, "ssm_scan", plain_scan):
+        g64, _ = make_grad_step(dataclasses.replace(cut, compute_dtype="float64"), plain_run)(
+            tree_map(torch.Tensor.double, params), batch)
+    rec = {"layers": cut.num_layers, "d_model": cut.d_model, "loss": float(mp["loss"]),
+           "loss_diff": abs(float(mk["loss"]) - float(mp["loss"])), "kernel_vs_fp64": grad_worst(gk, g64),
+           "plain_vs_fp64": grad_worst(gp, g64), "kernel_vs_plain": grad_worst(gk, gp), "margin": SSM_GRAD_MARGIN,
+           "launches": launches, "params": sum(t.numel() for t in leaves(params))}
+    del params, gk, gp, g64
+    free_card()
+    print(f"{cut.name} fp32, {cut.num_layers} layers at d_model {cut.d_model} ({what}; {rec['params']} params), one "
+          f"grad step on 2 x 1024 tokens: loss {rec['loss']:.6f}, kernel vs plain diff {rec['loss_diff']:.3e}; worst "
+          f"gradient over its leaf's largest |g| (at least {GRAD_FLOOR}): kernel path vs fp64 "
+          f"{rec['kernel_vs_fp64']:.3e}, plain fp32 path vs fp64 {rec['plain_vs_fp64']:.3e} (the kernel path at most "
+          f"{SSM_GRAD_MARGIN}x that), kernel vs plain {rec['kernel_vs_plain']:.3e}; launches {launches}")
+    check(rec["loss_diff"] <= 1e-5 * abs(rec["loss"])
+          and rec["kernel_vs_fp64"] <= SSM_GRAD_MARGIN * rec["plain_vs_fp64"],
+          f"{cut.name} fp32 cut training step, kernel vs plain: {rec}")
+    return rec
+
+
+def ssm_training(card: str) -> dict:
+    """Phase 18 (right after phase 17; frees everything at its end): K3 at
+    the training shapes against its plain version, and its gradient's
+    wiring; xlstm-1.3b trained at full width through ``launch.train.main``
+    (CUDA events around each grad microbatch, update, K3 forward, K3
+    recompute backward and each sLSTM block's forward and backward); K3
+    timed at xlstm's training shape beside its recompute backward; the fp32
+    kernel-vs-plain grad steps of xlstm cut to one period and of jamba-smoke's
+    period widened."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain, ssm_scan_ref_vjp
+    from repro_torch.models import ssm
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    out = {"k3_forward": {}, "k3_grad": {}}
+    fails = []
+    for dtype in (torch.bfloat16, torch.float32):
+        shapes = {"xlstm": k3_inputs(gen, *K3_TRAIN_XLSTM, dtype=dtype),
+                  "mamba": mamba_scan_inputs(gen, *K3_TRAIN_MAMBA, dtype)}
+        for name, inputs in shapes.items():
+            f = fold(*inputs, 256)
+            y, h = ssm_scan_cuda(*f, 256)
+            ye, he = k3_exact(*f, 256)
+            torch.cuda.synchronize()
+            r = {"x": tuple(f[0].shape), "y_over_terms": terms_err(y, ye, k3_terms(*f, 256)),
+                 "y_scaled": scaled_err(y, ye), "h": scaled_err(h, he)}
+            out["k3_forward"][f"{name}, {dtype}"] = r
+            print(f"K3 vs plain at the {name} training shape (folded x {r['x']}) {dtype}: y over the terms "
+                  f"{r['y_over_terms']:.3e} (tol {K3_TERMS_TOL[dtype]:.0e}), scaled err y {r['y_scaled']:.3e}, "
+                  f"h {r['h']:.3e} (tol {K3_TOL[torch.float32]:.0e})")
+            if not (r["y_over_terms"] <= K3_TERMS_TOL[dtype] and r["h"] <= K3_TOL[torch.float32]):
+                fails.append(f"{name}, {dtype}")
+            x, loga, b, c = inputs
+            g = k3_grad_check(x, loga, b, c[:, :, :1] if name == "mamba" else c)
+            out["k3_grad"][f"{name}, {dtype}"] = g
+            print(f"K3 gradient through ops.ssm_scan ({g['shape']}): grad_fn {g['grad_fn']}, launches "
+                  f"{g['forward_launches']} forward, {g['backward_launches']} backward; finite, dtype and shape kept "
+                  f"{g['sound']}; equal to autograd through the plain version {g['equal_plain_autograd']}")
+            if not g["ok"]:
+                fails.append(f"{name}, {dtype}, gradient")
+            del f, y, h, ye, he, inputs, x, loga, b, c
+        free_card()
+    check(not fails, f"K3 at the training shapes: {fails}")
+
+    # K3 at xlstm's training shape, bf16, as the model hands it (x and c
+    # bf16, b fp32): the kernel by graph replay and eager, the plain
+    # version, the recompute backward of one layer (y's cotangent only), and
+    # the bound at the function's own widths (P 513)
+    f = fold(*k3_inputs(gen, *K3_TRAIN_XLSTM, dtype=torch.bfloat16), 256)
+    gy = torch.randn(f[0].shape, generator=gen, device=gen.device).to(torch.bfloat16)
+    B3, S3, H3, P3, N3 = K3_TRAIN_XLSTM
+    BH, L3 = B3 * H3, 256
+    nbytes = BH * (S3 * P3 * 2 + S3 * 4 + S3 * N3 * 4 + S3 * N3 * 2 + S3 * P3 * 2 + N3 * P3 * 4)
+    tri = L3 * (L3 + 1) // 2
+    flops = BH * (S3 // L3) * (2 * tri * N3 + 2 * tri * P3 + 4 * L3 * N3 * P3)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    out["k3_training_shape"] = {
+        "shape": f"folded x {tuple(f[0].shape)} bf16, loga fp32, b {tuple(f[2].shape)} fp32, c bf16; chunk 256 "
+                 "(xlstm-1.3b train, 2 x 1024)",
+        "ms": graph_ms(lambda: ssm_scan_cuda(*f, 256)), "eager_ms": timed_ms(lambda: ssm_scan_cuda(*f, 256)),
+        "plain_ms": timed_ms(lambda: ssm_scan_plain(*f, 256)), "library_ms": None,
+        "recompute_backward_ms": timed_ms(lambda: ssm_scan_ref_vjp(*f, gy, None, 256)),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
+    t = out["k3_training_shape"]
+    print(f"ssd_scan at the training shape ({t['shape']}): {t['ms']:.5f} ms device (graph replay), eager "
+          f"{t['eager_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms by {t['bound_by']}, plain {t['plain_ms']:.4f} ms; "
+          f"recompute backward {t['recompute_backward_ms']:.4f} ms ({card})")
+    del f, gy
+    free_card()
+
+    # xlstm-1.3b at full width through train.main
+    xcfg = get_config("xlstm-1.3b")
+    XL = sum(xcfg.layer_kind(i) == "mlstm" for i in range(xcfg.num_layers))
+    XS = xcfg.num_layers - XL
+    train = timed_train(XLSTM_TRAIN_ARGS, xcfg, {"k3_fwd": (ops, "ssm_scan"), "k3_bwd": (ops, "ssm_scan_ref_vjp")},
+                        held_out=XLSTM_HELD_OUT, blocks={"slstm": (ssm, "slstm_apply_full")})
+    print_train("xlstm-1.3b", train, card)
+    check_train("xlstm-1.3b", train, xcfg, "ssm_scan", XL)
+    mbs = train["grad_microbatches"]
+    check(train["calls"]["k3_fwd"] == train["calls"]["k3_bwd"] == XL * mbs
+          and train["calls"]["slstm"] == train["calls"]["slstm_bwd"] == XS * mbs
+          and train["launches"]["flash_attention"] == 0 and mbs == 9,
+          f"xlstm training: {XL} K3 forwards and recompute backwards and {XS} sLSTM blocks a microbatch over 9 "
+          f"microbatches: {train['calls']}, launches {train['launches']}")
+    out["train"] = train
+    free_card()
+
+    # the fp32 kernel-vs-plain grad steps at a cut depth
+    x32 = dataclasses.replace(xcfg, num_layers=SSM_CUT_LAYERS, compute_dtype="float32")
+    out["xlstm_cut"] = ssm_cut_grad_check(x32, "one period: 7 mLSTM + 1 sLSTM, full width")
+    jsmoke = get_config("jamba-1.5-large-398b-smoke")
+    jcut = dataclasses.replace(jsmoke, num_layers=jsmoke.period, d_model=JAMBA_CUT_D_MODEL,
+                               head_dim=JAMBA_CUT_D_MODEL // jsmoke.num_heads, compute_dtype="float32")
+    out["jamba_cut"] = ssm_cut_grad_check(jcut, f"one period, widened: attention heads of {jcut.head_dim}, "
+                                                f"{ssm.mamba_heads(jcut)} Mamba heads of {ssm.MAMBA_HEAD_DIM}")
+    check(out["xlstm_cut"]["launches"]["ssm_scan"] == SSM_CUT_LAYERS - 1
+          and out["jamba_cut"]["launches"]["ssm_scan"] == jcut.num_layers - 1
+          and out["jamba_cut"]["launches"]["flash_attention"] == 1,
+          f"the cut checks ran K3 on every scan and K2 on jamba's attention layer: {out['xlstm_cut']['launches']}, "
+          f"{out['jamba_cut']['launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- 19. MoE, frontend and remat training -----------------------------------
+# moonshot-v1-16b-a3b at published widths cut to 3 of 48 layers (2.383e9
+# parameters: five fp32 copies fit beside the activations), musicgen-medium
+# at full width (1.819e9, 48 layers, heads of 64, 8 prefix frames before
+# 1016 tokens), each as phase 17 trains qwen3 (2 x 1024 a microbatch, 3 a
+# step over pods 1.0 and 0.5), 3 steps
+MOE_TRAIN_LAYERS, FAMILY_STEPS = 3, "3"
+FAMILY_ARGS = ["--steps", FAMILY_STEPS, "--batch", "2", "--seq", "1024", "--microbatches", "3", "--pods", "1.0,0.5",
+               "--log-every", "100", "--device", "cuda"]
+# the -smoke configs of all ten archs through train.main on the card, at
+# d_model 256 (heads of 64: K2 refuses the smoke configs' 16)
+SMOKE_TRAIN_ARGS = ["--d-model", str(SMOKE_D_MODEL), "--steps", "2", "--batch", "2", "--seq", "64",
+                    "--microbatches", "3", "--pods", "1.0,0.5", "--log-every", "100", "--device", "cuda"]
+
+
+def remat_compare(card: str) -> dict:
+    """qwen3-1.7b at full width (fp32 weights, bf16 compute), one grad
+    microbatch of 2 x 1024 under ``remat`` "none" (twice: the device's own
+    spread), "full" and "dots", each after a warm-up call of its own (the
+    first checkpointed call imports ``torch._dynamo``, seconds): ms (CUDA
+    events), peak GiB and the peak above what was allocated before the
+    step, K2 launches, and each mode's largest gradient difference from the
+    first "none"."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.dataset import batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_config("qwen3-1.7b")
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = next(batch_iterator(cfg, 1024, 2, seed=0))
+    base, rec = None, {}
+    for name, mode in (("warm-up", "none"), ("none", "none"), ("none again", "none"), ("warm-up", "full"),
+                       ("full", "full"), ("warm-up", "dots"), ("dots", "dots")):
+        step = make_grad_step(cfg, RunConfig(remat=mode, attention_impl="pallas"))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        grads, metrics = step(params, batch)
+        b.record()
+        torch.cuda.synchronize()
+        if name == "warm-up":
+            del grads
+            continue
+        peak = torch.cuda.max_memory_allocated()
+        rec[name] = {"ms": a.elapsed_time(b), "peak_gib": peak / 2**30, "above_gib": (peak - before) / 2**30,
+                     "k2_launches": ops.LAUNCHES["flash_attention"], "loss": float(metrics["loss"])}
+        if base is None:
+            base = grads
+        else:
+            rec[name]["grad_diff"] = max(float((x - y).abs().max()) for x, y in zip(tree_leaves(grads),
+                                                                                   tree_leaves(base)))
+            del grads
+    del params, base
+    free_card()
+    for name, r in rec.items():
+        print(f"qwen3-1.7b, one grad microbatch (2 x 1024) under remat {name!r}: {r['ms']:.1f} ms, peak "
+              f"{r['peak_gib']:.2f} GiB ({r['above_gib']:.2f} above the weights and held gradients), K2 launches "
+              f"{r['k2_launches']}, loss {r['loss']:.6f}"
+              + (f", largest gradient difference from 'none' {r['grad_diff']:.3e}" if "grad_diff" in r else "")
+              + f" ({card})")
+    L = cfg.num_layers
+    check(rec["none"]["k2_launches"] == L and rec["full"]["k2_launches"] == 2 * L
+          and rec["dots"]["k2_launches"] == 2 * L,
+          f"K2 launches under remat none / full / dots: {[r['k2_launches'] for r in rec.values()]}")
+    noise = rec["none again"]["grad_diff"]
+    check(all(rec[m]["grad_diff"] <= noise for m in ("full", "dots")) and rec["full"]["loss"] == rec["none"]["loss"]
+          and rec["dots"]["loss"] == rec["none"]["loss"],
+          f"remat full and dots give the gradients of none (within none's own spread {noise}): {rec}")
+    return rec
+
+
+def family_training(card: str) -> dict:
+    """Phase 19 (right after phase 18; frees everything at its end):
+    moonshot-v1-16b-a3b cut to MOE_TRAIN_LAYERS layers and musicgen-medium
+    at full width trained through ``launch.train.main`` as phase 17 trains
+    qwen3 (K2's spans; moonshot's dropped share and aux loss per grad
+    microbatch at the training capacity factor); qwen3-1.7b's grad
+    microbatch under each ``remat``; the ``-smoke`` config of every arch
+    trained for 2 steps."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+
+    t_phase = time.perf_counter()
+    out = {}
+    k2 = {"k2_fwd": (ops, "flash_attention"), "k2_bwd": (ops, "flash_attention_ref_vjp")}
+    mcfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), num_layers=MOE_TRAIN_LAYERS)
+    train = timed_train(["--arch", "moonshot-v1-16b-a3b", "--layers", str(MOE_TRAIN_LAYERS), *FAMILY_ARGS], mcfg, k2)
+    print_train(f"moonshot-v1-16b-a3b ({MOE_TRAIN_LAYERS} layers)", train, card)
+    drops = [m["moe_drop_frac"] for m in train["microbatch_metrics"]]
+    auxes = [m["moe_aux"] for m in train["microbatch_metrics"]]
+    print(f"train moonshot-v1-16b-a3b ({MOE_TRAIN_LAYERS} layers), capacity factor {mcfg.moe_capacity_factor}: "
+          f"dropped share per grad microbatch " + ", ".join(f"{d:.3f}" for d in drops)
+          + "; moe_aux " + ", ".join(f"{a:.3f}" for a in auxes))
+    check_train("moonshot-v1-16b-a3b", train, mcfg, "flash_attention", MOE_TRAIN_LAYERS)
+    check(all(0 <= d < 1 for d in drops) and all(np.isfinite(auxes)), f"moonshot dropped shares {drops}, aux {auxes}")
+    out["moonshot"] = train
+    free_card()
+
+    gcfg = get_config("musicgen-medium")
+    train = timed_train(["--arch", "musicgen-medium", *FAMILY_ARGS], gcfg, k2)
+    print_train("musicgen-medium", train, card)
+    check_train("musicgen-medium", train, gcfg, "flash_attention", gcfg.num_layers)
+    out["musicgen"] = train
+    free_card()
+
+    out["remat"] = remat_compare(card)
+
+    smoke = {}
+    for arch in ARCH_IDS:
+        ops.reset_launches()
+        res = train_mod.main(["--arch", f"{arch}-smoke", *SMOKE_TRAIN_ARGS])
+        cfg = get_config(f"{arch}-smoke")
+        kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+        smoke[arch] = {"losses": [h["loss"] for h in res["history"]], "launches": dict(ops.LAUNCHES)}
+        check(all(np.isfinite(smoke[arch]["losses"])) and len(smoke[arch]["losses"]) == 2
+              and (ops.LAUNCHES["flash_attention"] > 0) == ("attn" in kinds)
+              and (ops.LAUNCHES["ssm_scan"] > 0) == bool(kinds & {"mlstm", "mamba"}),
+              f"{arch}-smoke trains on the card through its kernels: {smoke[arch]}")
+    print(f"train the -smoke configs at d_model {SMOKE_D_MODEL} (2 steps): "
+          + "; ".join(f"{a} losses {', '.join(f'{x:.4f}' for x in r['losses'])}, launches {r['launches']}"
+                      for a, r in smoke.items()))
+    out["smoke"] = smoke
+    free_card()
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1950,21 +2445,6 @@ def main(argv=None) -> int:
     lap("3-4. K1, K2 at G = 1, 6, 16, 8, 7 and head_dim 64")
 
     # -- 5. K3 vs plain ---------------------------------------------------
-    def k3_inputs(B, S, H, P, N, dtype, loga="gate", b_dtype=torch.float32, gate_sd=1.0):
-        """mLSTM-like data: x with a ones column last (the normaliser), b =
-        k * exp(input gate), the gate's log ~ N(0, gate_sd^2) clamped at
-        +-10 as the model clamps it (1 is what the model's random weights
-        give; 3 reaches e^10), loga = log sigmoid of an open forget gate
-        (or 0, or ~ -5)."""
-        x = rnd(B, S, H, P, dtype=dtype)
-        x[..., -1] = 1
-        c = rnd(B, S, H, N, dtype=dtype)
-        gate = torch.exp((gate_sd * torch.randn(B, S, H, 1, generator=gen, device=dev)).clamp(-10, 10))
-        b = (torch.randn(B, S, H, N, generator=gen, device=dev) / N**0.5 * gate).to(b_dtype)
-        noise = torch.randn(B, S, H, generator=gen, device=dev)
-        la = {"gate": F.logsigmoid(3 + noise), "zero": torch.zeros_like(noise), "neg5": -5 + 0.1 * noise}[loga]
-        return x, la, b, c
-
     K3_PATH = (1, 1024, 4, 513, 512)  # one 1024-token prompt: B, S, H, P = head_dim + 1, N = head_dim
     k3_cases = [  # (name, (B, S, H, P, N), loga, b dtype or None for fp32, sd of the log input gate)
         ("path", K3_PATH, "gate", None, 1.0),
@@ -1980,7 +2460,8 @@ def main(argv=None) -> int:
     for dtype in (torch.bfloat16, torch.float32):
         worst_abs = worst_scaled = 0.0
         for name, shape, loga, b_dtype, gate_sd in k3_cases:
-            inputs = k3_inputs(*shape, dtype=dtype, loga=loga, b_dtype=b_dtype or torch.float32, gate_sd=gate_sd)
+            inputs = k3_inputs(gen, *shape, dtype=dtype, loga=loga, b_dtype=b_dtype or torch.float32,
+                               gate_sd=gate_sd)
             f = fold(*inputs, 256)
             y, h = ssm_scan_cuda(*f, 256)
             ye, he = k3_exact(*f, 256)
@@ -2000,7 +2481,7 @@ def main(argv=None) -> int:
                 k3_fail.append(f"{dtype}, {name}")
             worst_abs, worst_scaled = max(worst_abs, err(y, ye), err(h, he)), max(worst_scaled, sy, sh)
         # the chunk length does not change the final state
-        f = fold(*k3_inputs(1, 512, 4, 513, 512, dtype=dtype), 256)
+        f = fold(*k3_inputs(gen, 1, 512, 4, 513, 512, dtype=dtype), 256)
         _, h64 = ssm_scan_cuda(*f, 64)
         _, h256 = ssm_scan_cuda(*f, 256)
         torch.cuda.synchronize()
@@ -2016,7 +2497,7 @@ def main(argv=None) -> int:
     # inside the launch)
     k3_bits = {}
     for dtype in (torch.bfloat16, torch.float32):
-        f = fold(*k3_inputs(*K3_PATH, dtype=dtype), 256)
+        f = fold(*k3_inputs(gen, *K3_PATH, dtype=dtype), 256)
         k3_bits[str(dtype)] = k3_bit_checks(f, 1)
     print(f"K3 at the prefill shape {tuple(f[0].shape)}, bit for bit: {k3_bits}")
     check(all(all(v.values()) for v in k3_bits.values()), f"K3 bits: {k3_bits}")
@@ -2041,6 +2522,10 @@ def main(argv=None) -> int:
     # -- 17. training, right after the large serves: the card holds nothing else
     record["training"] = train_phase(card)
     lap("17. qwen3-1.7b training")
+    record["ssm_training"] = ssm_training(card)
+    lap("18. SSM training")
+    record["family_training"] = family_training(card)
+    lap("19. MoE, frontend and remat training")
 
     # -- 6. serve qwen3-1.7b at full width ---------------------------------
     cfg = get_config("qwen3-1.7b")
@@ -2244,7 +2729,7 @@ def main(argv=None) -> int:
     k2_flops = 4 * H * D * Sq * (Sq + 1) // 2
     # K3 at one 1024-token mLSTM prefill: x = v with the ones column (bf16),
     # loga fp32, b = k * igate (fp32), c = q (bf16); chunk 256
-    f3 = fold(*k3_inputs(*K3_PATH, dtype=torch.bfloat16), 256)
+    f3 = fold(*k3_inputs(gen, *K3_PATH, dtype=torch.bfloat16), 256)
     # the function's bytes and operations at its own widths (P = 513: the
     # kernel's padding to 520 is its own choice)
     B3, S3, H3, P3, N3 = K3_PATH
@@ -2302,6 +2787,10 @@ def main(argv=None) -> int:
                                     **{f"{name} serve": sv["launches"][key] for name, sv in serves.items()}}
         if key == "flash_attention":
             kern["launches_by_path"]["qwen3-1.7b train"] = record["training"]["train"]["launches"][key]
+            fam = record["family_training"]
+            kern["launches_by_path"][f"moonshot-v1-16b-a3b ({MOE_TRAIN_LAYERS} layers) train"] = \
+                fam["moonshot"]["launches"][key]
+            kern["launches_by_path"]["musicgen-medium train"] = fam["musicgen"]["launches"][key]
         check(all(n > 0 for n in kern["launches_by_path"].values()), f"{kern['name']} launched on every path")
         times = grp["k1_times" if key == "decode_attention" else "k2_times"]
         kern["groupings"] = [{k: t[k] for k in ("G", "head_dim", "shape", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -2320,7 +2809,10 @@ def main(argv=None) -> int:
                                                for name, sv in serves.items())
     kernels[1]["launches_per_step"] += "".join(f"; {sv['k2_per_prefill']:g} per prefill ({name})"
                                                for name, sv in serves.items())
-    kernels[1]["launches_per_step"] += f"; {L} per grad microbatch (qwen3-1.7b train; the backward is a recompute)"
+    kernels[1]["launches_per_step"] += (f"; {L} per grad microbatch (qwen3-1.7b train; the backward is a recompute)"
+                                        f"; {MOE_TRAIN_LAYERS} per grad microbatch (moonshot-v1-16b-a3b, "
+                                        f"{MOE_TRAIN_LAYERS} layers, train); 48 per grad microbatch (musicgen-medium "
+                                        "train)")
     # K2 at the training shape (qwen3, 2 x 1024, causal): its output held
     # against the plain version in bf16 (the training path's kernel) and
     # fp32, as phase 4 holds it at batch 1; then kernel, plain, SDPA and the
@@ -2377,9 +2869,13 @@ def main(argv=None) -> int:
     del qt, gt, kt, vt, lib_in
     jamba_name = f"jamba-1.5-large-398b ({record['jamba']['serve']['layers']} layers)"
     kernels[2]["launches_by_path"] = {"xlstm-1.3b serve": xlaunches["ssm_scan"],
-                                      f"{jamba_name} serve": serves[jamba_name]["launches"]["ssm_scan"]}
+                                      f"{jamba_name} serve": serves[jamba_name]["launches"]["ssm_scan"],
+                                      "xlstm-1.3b train": record["ssm_training"]["train"]["launches"]["ssm_scan"]}
     check(all(n > 0 for n in kernels[2]["launches_by_path"].values()), "ssd_scan launched on every path")
-    kernels[2]["launches_per_step"] += f"; {serves[jamba_name]['k3_per_prefill']:g} per prefill ({jamba_name})"
+    kernels[2]["launches_per_step"] += (f"; {serves[jamba_name]['k3_per_prefill']:g} per prefill ({jamba_name})"
+                                        f"; {XL} per grad microbatch (xlstm-1.3b train; the backward is a "
+                                        "recompute)")
+    kernels[2]["training_shape"] = record["ssm_training"]["k3_training_shape"]
     kernels[2]["mamba_shape"] = {k: record["k3_mamba"]["times"][k]
                                  for k in ("shape", "ms", "with_fold_ms", "plain_ms", "library_ms", "bound_ms",
                                            "bound_by")}
@@ -2454,20 +2950,10 @@ def main(argv=None) -> int:
 
     def split_prefill():
         spans = {"ssm_scan": [], "slstm": []}
-
-        def spanned(key, fn):
-            def call(*args, **kwargs):
-                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                a.record()
-                out = fn(*args, **kwargs)
-                b.record()
-                spans[key].append((a, b))
-                return out
-            return call
-
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with mock.patch.object(ops, "ssm_scan", spanned("ssm_scan", ops.ssm_scan)), \
-                mock.patch.object(ssm, "slstm_apply_full", spanned("slstm", ssm.slstm_apply_full)):
+        with mock.patch.object(ops, "ssm_scan", spanned(spans, "ssm_scan", ops.ssm_scan, training_only=False)), \
+                mock.patch.object(ssm, "slstm_apply_full", spanned(spans, "slstm", ssm.slstm_apply_full,
+                                                                   training_only=False)):
             a.record()
             M.prefill(xcfg, kernel_run, xparams, xprompt, 2048)
             b.record()

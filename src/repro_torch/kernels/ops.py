@@ -8,12 +8,16 @@
 A wrapper runs its kernel's plain PyTorch version for tensors on the CPU
 (the tests) and launches the CUDA kernel for tensors on the card, raising
 if the kernel does not take them; there is no fallback from one to the
-other. ``LAUNCHES`` counts kernel launches per wrapper (forward launches:
-K2's backward is a recompute in plain PyTorch, as in the JAX package), so
-a run can show that its main path went through the kernels. K1 and K2
-read the tensors in the model's layout through strides; ``ssm_scan``
-folds batch and heads into the kernel's row axis (a copy), as the JAX
-package's wrapper does.
+other. K2 and K3 are differentiable on both devices: each is a
+``torch.autograd.Function`` whose forward is the kernel (its plain
+version on the CPU) and whose backward recomputes the plain version under
+autograd, as the JAX package differentiates its oracles; no backward
+launches a kernel. ``LAUNCHES`` counts kernel launches per wrapper
+(forward launches only, and a forward recomputed by activation
+checkpointing launches again), so a run can show that its main path went
+through the kernels. K1 and K2 read the tensors in the model's layout
+through strides; ``ssm_scan`` folds batch and heads into the kernel's
+row axis (a copy), as the JAX package's wrapper does.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_plain,
     flash_attention_ref_vjp,
 )
-from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain, unfold
+from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain, ssm_scan_ref_vjp, unfold
 
 LAUNCHES = {"decode_attention": 0, "flash_attention": 0, "ssm_scan": 0}
 
@@ -120,24 +124,40 @@ def combine_decode_partials(outs, ms, ls):
     return num / den.clamp_min(1e-30)[..., None]
 
 
+class _SsmScan(torch.autograd.Function):
+    """K3's forward on the folded layout; the backward is the VJP of its
+    plain version under recompute (``ssm_scan_ref_vjp``) from the saved
+    folded inputs. ``fold`` and ``unfold`` stay outside, so their padding
+    and layout changes carry their own gradients. The final state's
+    cotangent is ``None`` when nothing reads it (training), and counts as
+    zero. Only the forward launches the kernel and counts."""
+
+    @staticmethod
+    def forward(ctx, x, loga, b, c, chunk: int):
+        if x.device.type == "cpu":
+            y, h = ssm_scan_plain(x, loga, b, c, chunk)
+        else:
+            y, h = ssm_scan_cuda(x, loga, b, c, chunk)
+            LAUNCHES["ssm_scan"] += 1
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, loga, b, c)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        return (*ssm_scan_ref_vjp(*ctx.saved_tensors, gy, gh, ctx.chunk), None)
+
+
 def ssm_scan(x, loga, b, c, chunk: int = 256):
     """Chunked SSD scan from a zero state; x (B, S, H, P), loga (B, S, H)
     fp32, b/c (B, S, H, N). Any S: it is padded to a multiple of
     ``min(chunk, S)`` with identity steps (and P and N to multiples of 8
     with zero columns, cut off again). Returns ``(y (B, S, H, P) in
-    x's dtype, h (B, H, N, P) fp32)``.
-
-    The CUDA kernel has no backward: on the card this raises for inputs
-    that require a gradient rather than detach them silently.
-    """
+    x's dtype, h (B, H, N, P) fp32)``. Differentiable on both devices:
+    the forward is K3 (its plain version on the CPU), the backward
+    recomputes the plain version under autograd."""
     batch, seq = x.shape[:2]
     p, n = x.shape[-1], b.shape[-1]
-    if x.device.type == "cpu":
-        y, h = ssm_scan_plain(*fold(x, loga, b, c, chunk), chunk)
-    else:
-        if any(t.requires_grad for t in (x, loga, b, c)):
-            raise RuntimeError("ssm_scan: the CUDA kernel has no backward; call it on tensors "
-                               "that do not require grad (torch.no_grad())")
-        y, h = ssm_scan_cuda(*fold(x, loga, b, c, chunk), chunk)
-        LAUNCHES["ssm_scan"] += 1
+    y, h = _SsmScan.apply(*fold(x, loga, b, c, chunk), chunk)
     return unfold(y, h, batch, seq, p, n)

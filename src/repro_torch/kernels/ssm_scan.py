@@ -5,7 +5,9 @@ The CUDA kernel is ``csrc/ssm_scan.cu``; it replaces the Pallas kernel
 :func:`ssm_scan_plain` computes the same function in plain PyTorch: the
 CPU tests run it, and ``chip_smoke.py`` holds the kernel against it on the
 card. Callers go through ``kernels/ops.py::ssm_scan``, which takes the
-model layout and uses :func:`fold` and :func:`unfold` below.
+model layout and uses :func:`fold` and :func:`unfold` below. The kernel
+is a forward; its gradient is :func:`ssm_scan_ref_vjp`, the plain
+version differentiated under recompute.
 
 Contract of both, on the kernel's folded layout: x ``(BH, S, P)``, loga
 ``(BH, S)`` fp32, b and c ``(BH, S, N)``; the recurrence
@@ -131,6 +133,23 @@ def ssm_scan_plain(x, loga, b, c, chunk: int):
         h = torch.exp(total[:, i])[:, None, None] * h + s_k[:, i]
     y = y + torch.stack(y_inter, dim=1)
     return y.reshape(bh, s, p).to(x.dtype), h
+
+
+def ssm_scan_ref_vjp(x, loga, b, c, gy, gh, chunk: int):
+    """``(dx, dloga, db, dc)`` of :func:`ssm_scan_plain` at the folded
+    inputs for the cotangents ``gy`` of y and ``gh`` of the final h (one of
+    them may be ``None``, for zero), in the inputs' dtypes: the function
+    recomputed under autograd, as the JAX package differentiates its jnp
+    ``chunked_ssd`` (``repro/models/ssm.py``), which has no backward kernel
+    either. The
+    clamped decay exponent of the plain version keeps the masked side of
+    the intra-chunk term out of the backward (inf · 0 would give NaN).
+    Plain PyTorch on every device."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, loga, b, c)]
+        pairs = [(out, g) for out, g in zip(ssm_scan_plain(*ins, chunk), (gy, gh)) if g is not None]
+        outs, grads = zip(*pairs)
+        return torch.autograd.grad(outs, ins, grads, allow_unused=True, materialize_grads=True)
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -6,7 +6,9 @@ eagerly, so each ``make_*`` function returns the step itself:
 het-DP coordinator, and ``make_train_step`` gives ``(params, opt_state,
 batch) → (params, opt_state, metrics)`` with ``run.grad_accum_steps``
 sequential microbatches. A batch is the numpy dict of
-``data/dataset.py``; it goes to the params' device here. The serve and
+``data/dataset.py``; it goes to the params' device here. Activation
+recomputation follows ``RunConfig.remat`` per period of blocks, as the
+reference's ``jax.checkpoint`` of its scan body. The serve and
 prefill steps, the shardings and the dry-run artifacts belong to
 distribution and are not ported.
 """
@@ -28,12 +30,6 @@ def _to_device(batch: dict, device) -> dict:
     return {key: t.long() if key in _LONG else t for key, t in out.items()}
 
 
-def _check_remat(run: RunConfig) -> None:
-    if run.remat != "none":
-        raise ValueError(f"RunConfig.remat={run.remat!r}: the port trains with remat='none' only "
-                         "(activation recomputation is not ported)")
-
-
 def make_grad_step(cfg: ModelConfig, run: RunConfig):
     """(params, batch) → (grads, metrics), used by the het-DP coordinator,
     which accumulates a pod-local number of microbatches before the
@@ -41,8 +37,10 @@ def make_grad_step(cfg: ModelConfig, run: RunConfig):
     from ``torch.autograd.grad`` over the param leaves (made to require
     grad here, on the params' own storage), in the leaves' dtypes; a leaf
     the loss does not reach gets zeros, as ``jax.grad`` gives. Metrics are
-    0-d tensors, detached: nothing here waits for the device."""
-    _check_remat(run)
+    0-d tensors, detached: nothing here waits for the device.
+    ``run.remat`` ("none", "dots" or "full") sets what the forward keeps
+    for the backward and what it recomputes (``models/model.py::forward``).
+    """
 
     def loss_fn(params, batch):
         logits, aux = M.forward(cfg, run, params, batch["tokens"], batch.get("prefix_features"))

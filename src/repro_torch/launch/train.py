@@ -3,17 +3,26 @@
 Port of ``repro/launch/train.py``. Runs the heterogeneity-aware stack on
 one device: capacity-proportional accumulation across logical pods,
 weighted (optionally int8-compressed) cross-pod combine, heartbeats,
-redundant checkpoints, failure injection + elastic recovery. On the card
-(``--device cuda``, the default) every attention layer's forward is K2
-and its backward the reference's recompute (``kernels/ops.py``); on the
-CPU the same autograd function runs K2's plain version. ``RunConfig.remat``
-is "none", as in the reference's trainer; other values raise.
+redundant checkpoints, failure injection + elastic recovery. Every arch
+of the port trains. On the card (``--device cuda``, the default) every
+attention layer's forward is K2 and every mLSTM and Mamba scan K3, each
+with the reference's recompute backward (``kernels/ops.py``); on the CPU
+the same autograd functions run the kernels' plain versions. A frontend
+arch (musicgen, llava) trains on 8 prefix features before each
+microbatch's tokens. ``RunConfig.remat`` is "none", as in the reference's
+trainer (``make_grad_step`` also takes "dots" and "full").
 
 Examples
 --------
 # a smoke-size model for a few steps on the CPU:
 PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b-smoke \\
     --device cpu --steps 20 --batch 4 --seq 64
+
+# xlstm-1.3b at full width, or a MoE stack cut to 3 layers, on the card:
+PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \\
+    --steps 3 --batch 2 --seq 1024 --microbatches 3 --pods 1.0,0.5
+PYTHONPATH=src python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b \\
+    --layers 3 --steps 3 --batch 2 --seq 1024 --microbatches 3
 
 # heterogeneous 4-pod run with a mid-run failure, on the card:
 PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b-smoke \\

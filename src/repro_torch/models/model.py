@@ -6,9 +6,9 @@ internlm2, llama3, llava, musicgen) or a mixture-of-experts FFN (moonshot,
 mixtral: ``models/moe.py``), the xLSTM stack (mLSTM and sLSTM blocks, no
 FFN), and the hybrid of Mamba-2 and attention blocks, each with a dense or
 MoE FFN (jamba). The JAX package's ``lax.scan`` over block periods becomes
-a Python loop over layers; parameters are a dict with a ``layers`` list,
-one dict per layer, in the JAX package's weight layouts (``wq (D, H,
-hd)``, ``wo (H, hd, D)``, experts ``(E, D, F)``). A modality frontend
+a Python loop over the periods' layers; parameters are a dict with a
+``layers`` list, one dict per layer, in the JAX package's weight layouts
+(``wq (D, H, hd)``, ``wo (H, hd, D)``, experts ``(E, D, F)``). A modality frontend
 (llava's vision patches, musicgen's audio frames) is a linear projection
 ``frontend.proj`` of precomputed features, put before the token
 embeddings when ``forward`` or ``prefill`` is given ``prefix_features``;
@@ -32,7 +32,8 @@ its own layers with batch on dim 1, so a serving slot is one
 position, its KV slots and its recurrent state exactly as they were.
 
 Three entry points mirror the workload kinds:
-  forward()      — training forward (logits + aux metrics)
+  forward()      — training forward (logits + aux metrics), activation
+                   recomputation per ``RunConfig.remat``
   prefill()      — forward + cache construction
   decode_step()  — one token with cache
 and ``lm_loss`` is the training loss on the forward's logits.
@@ -45,6 +46,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as attn
@@ -201,25 +203,62 @@ def _block_full(cfg, run, blk, kind, h, positions):
     return _ffn(cfg, blk, h, inference=False)
 
 
+def _period(cfg, run, blocks, kinds, positions, h):
+    """One period of blocks, the JAX package's scan body. Returns ``(h,
+    aux)``, the MoE metrics summed over the period's blocks."""
+    sums = {}
+    for blk, kind in zip(blocks, kinds):
+        h, aux = _block_full(cfg, run, blk, kind, h, positions)
+        for key, v in aux.items():
+            sums[key] = sums[key] + v if key in sums else v
+    return h, sums
+
+
+# "dots" keeps the outputs of the products with no batch dimension (the
+# weight products: 2-D matmuls and linear layers) and recomputes the rest,
+# batched products (attention scores, the experts' bmm) and the kernels
+# included, as jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims
+_DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat(run: RunConfig, fn, h):
+    """``fn(h)`` under ``run.remat``, as the JAX package's ``_remat`` wraps
+    its scan body: "none" keeps every activation for the backward; "full"
+    keeps only ``h`` and reruns ``fn`` in the backward; "dots" keeps the
+    weight products' outputs besides and reruns the rest."""
+    if run.remat == "none":
+        return fn(h)
+    if run.remat == "full":
+        return checkpoint(fn, h, use_reentrant=False)
+    if run.remat == "dots":
+        return checkpoint(fn, h, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts, _DOTS_SAVED))
+    raise ValueError(f"RunConfig.remat={run.remat!r}: expected 'none', 'dots' or 'full'")
+
+
 def forward(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor,
             prefix_features: Optional[torch.Tensor] = None):
     """Training/eval forward. tokens: (B, S), after the frontend's
     ``prefix_features`` (B, P, feature dim) where given. Returns (logits
     (B, P + S, V), aux).
 
+    The blocks run a period (``cfg.period`` layers, the JAX package's scan
+    body) at a time, each period under ``run.remat`` (:func:`_remat`).
     ``aux`` holds the MoE metrics as the JAX package reports them: summed
     over the blocks of each period, then averaged over the periods; zeros
     for a stack without MoE."""
     h = _embed(cfg, params, tokens, prefix_features)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    periods = [{} for _ in range(cfg.num_periods)]
-    for i, (blk, (kind, _)) in enumerate(zip(params["layers"], _kind_index(cfg))):
-        h, aux = _block_full(cfg, run, blk, kind, h, positions)
-        sums = periods[i // cfg.period]
-        for key, v in aux.items():
-            sums[key] = sums[key] + v if key in sums else v
+    kinds = [kind for kind, _ in _kind_index(cfg)]
+    p = cfg.period
+    periods = []
+    for start in range(0, cfg.num_layers, p):
+        body = functools.partial(_period, cfg, run, params["layers"][start:start + p], kinds[start:start + p],
+                                 positions)
+        h, sums = _remat(run, body, h)
+        periods.append(sums)
     if periods[0]:
-        aux = {key: torch.stack([p[key] for p in periods]).mean() for key in periods[0]}
+        aux = {key: torch.stack([sums[key] for sums in periods]).mean() for key in periods[0]}
     else:
         zero = torch.zeros((), device=h.device)
         aux = {"moe_aux": zero, "moe_drop_frac": zero}
