@@ -149,12 +149,26 @@ toolkit: ``python3 chip_smoke.py``. It
    qwen3-1.7b grad microbatch under ``remat`` "none" (twice), "full" and
    "dots" (ms, peak, K2 launches, gradients against "none"); and the
    ``-smoke`` config of every arch, at d_model 256, for 2 steps;
-20. prints one ``{"kernels": [...]}`` line with times and bounds (and the
+20. (right after phase 19) the distribution layer: K1 with partials on 4
+   sequence shards of 8192 keys at qwen3-1.7b's layout and decode_32k's
+   length (B 8, bf16; a row valid in shard 0 only and an all-invalid row),
+   combined, against one K1 call over 32768 keys and the plain version,
+   and timed beside the one call; ``sharded_decode_attention`` on a
+   one-rank NCCL (1, 1) mesh against the one call; ``pipeline_apply`` of
+   one qwen3-1.7b block over 4 microbatches of (2, 1024) against a
+   sequential run; and qwen3-1.7b's sharded train step at full width
+   through ``make_train_step(cfg, run, rules)`` (params and AdamW state
+   placed by ``model_specs``/``opt_state_specs``, 28 K2 launches a step,
+   each through the wrappers' DTensor path) against the unsharded step
+   (losses to 1e-3, ms per step, peak), and at a 2-layer fp32 cut (params
+   to 1e-4). NCCL places one rank per card, so the multi-rank behaviour is
+   held on gloo CPU groups by ``tests/test_torch_parallel.py``;
+21. prints one ``{"kernels": [...]}`` line with times and bounds (and the
    launches of each serve path and of training; for K1 and K2 the times at
    each head grouping, K2 and K3 also at the training shape, K3 at the
-   Mamba shape), the seconds of each phase, the card line, and last
-   ``{"ok": true, "device": {...}}``. ``--out FILE`` also writes every
-   measurement to FILE as JSON.
+   Mamba shape, and K1 sharded over 4 shards of decode_32k), the seconds
+   of each phase, the card line, and last ``{"ok": true, "device":
+   {...}}``. ``--out FILE`` also writes every measurement to FILE as JSON.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 at once.
@@ -316,7 +330,7 @@ def check(ok: bool, what: str) -> None:
 EARLIER_MS = {"flash_decode": 1.1745, "flash_attention_fwd": 1.3177, "ssd_scan": 0.7944}
 # the kernels line holds names, strings, this run's measurements and
 # bound_ms; derived rates, constants and quoted times stay in --out's record
-LINE_KEYS = ("name", "route", "source", "replaces", "tpu_kernel", "launches", "launches_per_step",
+LINE_KEYS = ("name", "route", "source", "replaces", "tpu_kernel", "launches", "launches_per_step", "one_call_ms",
              "launches_by_path", "max_abs_err", "max_scaled_err", "max_scaled_err_by_dtype",
              "max_terms_err_mamba_shape", "ms", "kernel_ms",
              "eager_ms", "plain_ms", "library_ms", "library_note", "timing", "bound_ms", "bound_by", "groupings",
@@ -982,8 +996,8 @@ def serve_arena(cfg, params, lens, max_len: int, batch: int, card: str, spy_kern
     drops, windows, wrapped = [], [], []
     moe_apply, flash, decode = moe.moe_apply, ops.flash_attention, ops.decode_attention
 
-    def spy_moe(c, p, x, inference=False):
-        y, aux = moe_apply(c, p, x, inference=inference)
+    def spy_moe(c, p, x, inference=False, **kw):
+        y, aux = moe_apply(c, p, x, inference=inference, **kw)
         if x.shape[1] > 1:
             drops.append(aux["moe_drop_frac"])
         return y, aux
@@ -2273,6 +2287,245 @@ def family_training(card: str) -> dict:
     return out
 
 
+# The distribution phase. K1 shard by shard: qwen3-1.7b's attention layout
+# (16 q heads, 8 KV heads of 128) at decode_32k's length (32768 keys,
+# src/repro/configs/base.py:274), 8 rows, bf16: 1.07 GB of K and V, cut
+# into 4 sequence shards of 8192 keys. The pipeline: one qwen3-1.7b block
+# at full width over 4 microbatches of (2, 1024). The sharded train step:
+# qwen3-1.7b at full width, one microbatch of 2 x 1024 tokens, timed over
+# DIST_TRAIN_STEPS steps after the first; its fp32 check on a 2-layer cut.
+DIST_DECODE, DIST_SHARDS = (8, 32768, 16, 8, 128), 4
+DIST_PIPE = (4, 2, 1024)
+DIST_TRAIN_SEQ, DIST_TRAIN_STEPS, DIST_CUT_LAYERS = (2, 1024), 2, 2
+DIST_LOSS_RTOL, DIST_CUT_TOL = 1e-3, 1e-4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def distribution_phase(card: str) -> dict:
+    """Phase 20 (right after phase 19, while the card holds nothing else;
+    destroys its process group and frees everything at its end): (a) K1
+    shard by shard at qwen3-1.7b's layout and decode_32k's length, combined
+    by ``ops.combine_decode_partials``, against one K1 call and the plain
+    version, and timed beside the one call; (b) ``sharded_decode_attention``
+    on a one-rank NCCL (1, 1) mesh of ("data", "model"), whose K1 launch is
+    this row's launch; (c) ``pipeline_apply`` of one qwen3-1.7b block over 4
+    microbatches on a one-rank ("pod", "data") mesh against a sequential
+    run; (d) qwen3-1.7b's sharded train step at full width through
+    ``make_train_step(cfg, run, rules)``, params and optimizer state placed
+    by ``model_specs``/``opt_state_specs``, against the unsharded step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import distribute_tree, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.flash_decode import sharded_decode_attention
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.parallel.sharding import rules_from_mesh
+
+    import torch.nn.functional as F
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    out = {}
+
+    # -- (a) K1 shard by shard, one process ------------------------------
+    B, S, H, KH, D = DIST_DECODE
+    n, step = DIST_SHARDS, DIST_DECODE[1] // DIST_SHARDS
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, KH, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, KH, D), generator=gen, device=dev).to(torch.bfloat16)
+    valid_b = torch.rand((B, S), generator=gen, device=dev) > 0.2
+    valid_b[B - 2, step:] = False  # valid keys in shard 0 only: three shards empty
+    valid_b[B - 1] = False  # no valid key
+    valid = valid_b.to(torch.int32)
+    cuts = [slice(i * step, (i + 1) * step) for i in range(n)]
+    vcuts = [valid[:, c].contiguous() for c in cuts]
+    scale = D**-0.5
+
+    def sharded():
+        parts = [decode_attention_cuda(q, k[:, c], v[:, c], vc, scale=scale, normalize=False)
+                 for c, vc in zip(cuts, vcuts)]
+        return ops.combine_decode_partials(*zip(*parts))
+
+    def whole():
+        return decode_attention_cuda(q, k, v, valid, scale=scale)[0]
+
+    got, one = sharded(), whole()
+    plain = decode_attention_plain(q, k, v, valid, scale=scale)[0]
+    torch.cuda.synchronize()
+    errs = {"vs_one_call": float((got - one).abs().max()), "vs_plain": float((got - plain).abs().max()),
+            "scaled_vs_one_call": scaled_err(got, one), "scaled_vs_plain": scaled_err(got, plain),
+            "one_call_vs_plain": float((one - plain).abs().max())}
+    out["k1_sharded_err"] = errs
+    print(f"K1 sharded {n} x {step} at q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16: max abs err vs one call "
+          f"{errs['vs_one_call']:.3e}, vs plain {errs['vs_plain']:.3e} (tol {BF16_TOL}); scaled {errs['scaled_vs_one_call']:.3e}, "
+          f"{errs['scaled_vs_plain']:.3e} (tol {ATTN_SCALED_TOL[torch.float32]:.0e})")
+    for key in ("vs_one_call", "vs_plain", "one_call_vs_plain"):
+        check(errs[key] < BF16_TOL, f"K1 sharded: {key} {errs}")
+    for key in ("scaled_vs_one_call", "scaled_vs_plain"):
+        check(errs[key] <= ATTN_SCALED_TOL[torch.float32], f"K1 sharded: {key} {errs}")
+    check(bool((got[B - 1] == 0).all() and (one[B - 1] == 0).all()), "K1 sharded: the all-invalid row is exact zeros")
+    # each input read once, the fp32 output written once; 4 D operations per
+    # (q head, valid key): the scores and the weighted values
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, valid)) + B * H * D * 4
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, 4 * H * D * int(valid_b.sum()) / BF16_FLOPS * 1e3
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = valid_b[:, None, None, :]
+    times = {"ms": graph_ms(sharded), "one_call_ms": graph_ms(whole),
+             "plain_ms": timed_ms(lambda: decode_attention_plain(q, k, v, valid, scale=scale)),
+             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                                           enable_gqa=True)),
+             "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations", "bytes": nbytes}
+    out["k1_sharded"] = times
+    print(f"K1 sharded {n} x {step} + combine: {times['ms']:.5f} ms device; one K1 call over {S}: "
+          f"{times['one_call_ms']:.5f} ms; bound {times['bound_ms']:.5f} ms by {times['bound_by']} "
+          f"({nbytes / 1e9:.3f} GB); plain {times['plain_ms']:.4f} ms; SDPA {times['library_ms']:.5f} ms ({card})")
+    del plain, got
+
+    # -- (b) sharded_decode_attention on a one-rank NCCL mesh -------------
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh((1, 1))
+        ops.reset_launches()
+        res = sharded_decode_attention(q, k, v, valid_b, mesh).full_tensor()
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        # the result is in q's dtype (bf16): within the fp32 limit of one K1
+        # call's fp32 output after the rounding to bf16 (2^-8 of the value)
+        err = float((res.float() - one).abs().max())
+        over = float(((res.float() - one).abs() - one.abs() * 2**-8).max())
+        check(launches["decode_attention"] == 1, f"sharded_decode_attention launched K1 {launches}")
+        check(over <= FP32_TOL and bool((res[B - 1] == 0).all()),
+              f"sharded_decode_attention on the NCCL mesh vs one K1 call: {err}, past the bf16 rounding {over}")
+        out["nccl_decode"] = {"max_abs_err": err, "past_bf16_rounding": over, "launches": launches["decode_attention"],
+                              "mesh": list(mesh.mesh_dim_names)}
+        print(f"sharded_decode_attention on a one-rank NCCL (1, 1) mesh: max abs err vs one K1 call {err:.3e}, "
+              f"{over:.3e} past the rounding to bf16 (tol {FP32_TOL}), K1 launches {launches['decode_attention']}")
+        print("NCCL places one rank per card: the multi-rank combine, pipeline and sharded train step are held "
+              "on gloo CPU groups of 8 ranks by tests/test_torch_parallel.py")
+        del q, k, v, valid, valid_b, vcuts, res, one
+        free_card()
+
+        # -- (c) pipeline_apply on the one-rank group ----------------------
+        cfg = get_config("qwen3-1.7b")
+        run = RunConfig(remat="none", attention_impl="pallas", z_loss=0.0)
+        blk = M.init_model(dataclasses.replace(cfg, num_layers=1), torch.Generator(device=dev).manual_seed(0),
+                           dtype=torch.bfloat16)["layers"][0]
+        Mb, Bp, Sp = DIST_PIPE
+        x = torch.randn((Mb, Bp, Sp, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        positions = torch.arange(Sp, device=dev)[None, :]
+
+        def block(p, h):
+            return M._block_full(cfg, run, p, "attn", h, positions)[0]
+
+        pmesh = make_mesh((1, 1), ("pod", "data"))
+        with torch.no_grad():
+            ops.reset_launches()
+            piped = pipeline_apply(block, tree_map(lambda t: t[None], blk), x, pmesh, stage_axis="pod")
+            pipe_launches = ops.LAUNCHES["flash_attention"]
+            seq = torch.stack([block(blk, x[i]) for i in range(Mb)])
+        torch.cuda.synchronize()
+        perr = float((piped.float() - seq.float()).abs().max())
+        check(perr <= 1e-2 * float(seq.float().abs().max()) and pipe_launches == Mb,
+              f"pipeline_apply vs sequential: err {perr}, K2 {pipe_launches}")
+        out["pipeline"] = {"max_abs_err": perr, "k2_launches": pipe_launches, "microbatches": Mb}
+        print(f"pipeline_apply of one qwen3-1.7b block, {Mb} microbatches of {(Bp, Sp)}, one stage: "
+              f"max abs err vs sequential {perr:.3e}, K2 launches {pipe_launches}")
+        del blk, x, piped, seq
+        free_card()
+
+        # -- (d) the sharded train step of qwen3-1.7b ----------------------
+        mesh = make_mesh((1, 1))
+        rules = rules_from_mesh(mesh)
+        corpus_rng = np.random.default_rng(20)
+        bt, st = DIST_TRAIN_SEQ
+        batches = [{"tokens": corpus_rng.integers(0, cfg.vocab_size, (bt, st)),
+                    "labels": corpus_rng.integers(0, cfg.vocab_size, (bt, st)),
+                    "mask": np.ones((bt, st), np.float32)} for _ in range(1 + DIST_TRAIN_STEPS)]
+
+        def run_steps(c, sharded_run: bool, steps: int):
+            params = M.init_model(c, torch.Generator(device=dev).manual_seed(0))
+            opt = adamw.init_opt_state(params)
+            if sharded_run:
+                specs = M.model_specs(c, rules)
+                params = distribute_tree(params, specs, mesh)
+                opt = distribute_tree(opt, adamw.opt_state_specs(specs), mesh)
+            step_fn = make_train_step(c, run, rules if sharded_run else None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms, k2, local = [], [], [], []
+            real = ops._on_local_heads
+
+            def spy(*a, **kw):
+                local.append(1)
+                return real(*a, **kw)
+
+            with mock.patch.object(ops, "_on_local_heads", spy):
+                for i in range(steps):
+                    ops.reset_launches()
+                    local.clear()
+                    t0 = time.perf_counter()
+                    params, opt, metrics = step_fn(params, opt, batches[i])
+                    loss = float(metrics["loss"])
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(loss)
+                    k2.append((ops.LAUNCHES["flash_attention"], len(local)))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            return params, {"losses": losses, "ms": ms, "k2_and_dtensor_calls": k2, "peak_gib": peak}
+
+        L = cfg.num_layers
+        # the params each run returns are dropped at once: kept, they would
+        # sit in the next run's peak
+        plain_rec = run_steps(cfg, False, 1 + DIST_TRAIN_STEPS)[1]
+        free_card()
+        shard_rec = run_steps(cfg, True, 1 + DIST_TRAIN_STEPS)[1]
+        free_card()
+        for a, b_ in zip(plain_rec["losses"], shard_rec["losses"]):
+            check(np.isfinite(a) and abs(a - b_) <= DIST_LOSS_RTOL * abs(a),
+                  f"sharded vs unsharded loss {shard_rec['losses']} vs {plain_rec['losses']}")
+        check(all(kk == (L, L) for kk in shard_rec["k2_and_dtensor_calls"]),
+              f"every K2 launch of the sharded step went through the DTensor path: {shard_rec['k2_and_dtensor_calls']}")
+        check(all(kk == (L, 0) for kk in plain_rec["k2_and_dtensor_calls"]),
+              f"the unsharded step ran K2 {plain_rec['k2_and_dtensor_calls']}")
+        out["train"] = {"unsharded": plain_rec, "sharded": shard_rec}
+        for name, r in (("unsharded", plain_rec), ("sharded (1, 1) mesh", shard_rec)):
+            print(f"qwen3-1.7b train step {name}, {bt} x {st} tokens: losses "
+                  + ", ".join(f"{x_:.5f}" for x_ in r["losses"]) + "; ms per step "
+                  + ", ".join(f"{x_:.1f}" for x_ in r["ms"]) + f" (first incl. warm-up); K2 launches and DTensor "
+                  f"calls per step {r['k2_and_dtensor_calls']}; peak {r['peak_gib']:.2f} GiB ({card})")
+
+        cut = dataclasses.replace(cfg, num_layers=DIST_CUT_LAYERS, compute_dtype="float32")
+        p_plain, _ = run_steps(cut, False, 1)
+        p_shard, _ = run_steps(cut, True, 1)
+        cut_err = max(float((a - b_.full_tensor()).abs().max())
+                      for a, b_ in zip(tree_leaves(p_plain), tree_leaves(p_shard)))
+        check(cut_err < DIST_CUT_TOL, f"{DIST_CUT_LAYERS}-layer fp32 cut: sharded vs unsharded params {cut_err}")
+        out["train"]["cut_fp32_max_param_err"] = cut_err
+        print(f"qwen3-1.7b cut to {DIST_CUT_LAYERS} layers, fp32, one step: params sharded vs unsharded max abs "
+              f"err {cut_err:.3e} (tol {DIST_CUT_TOL})")
+        del p_plain, p_shard
+    finally:
+        dist.destroy_process_group()
+    free_card()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write every measurement as JSON to this file")
@@ -2526,6 +2779,8 @@ def main(argv=None) -> int:
     lap("18. SSM training")
     record["family_training"] = family_training(card)
     lap("19. MoE, frontend and remat training")
+    record["distribution"] = distribution_phase(card)
+    lap("20. distribution")
 
     # -- 6. serve qwen3-1.7b at full width ---------------------------------
     cfg = get_config("qwen3-1.7b")
@@ -2911,6 +3166,24 @@ def main(argv=None) -> int:
                                            "each element sums"}},
                       max_scaled_err=max(k3_scaled.values()),
                       library_note="no single PyTorch call computes a chunked scan")
+    # K1 on 4 sequence shards of decode_32k plus the combine (phase 20): the
+    # distributed path's kernel; its launch is sharded_decode_attention's on
+    # the one-rank NCCL mesh
+    dd = record["distribution"]
+    kernels.append({
+        "name": f"flash_decode sharded {DIST_SHARDS} x {DIST_DECODE[1] // DIST_SHARDS}", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu", "replaces": "src/repro/kernels/decode_attention.py:31",
+        "tpu_kernel": "src/repro/kernels/decode_attention.py:_decode_kernel, under "
+                      "src/repro/parallel/flash_decode.py:sharded_decode_attention",
+        "launches": dd["nccl_decode"]["launches"],
+        "launches_per_step": f"{DIST_SHARDS} per layer and decode step over {DIST_SHARDS} shards (one per rank); "
+                             "1 on the one-rank mesh",
+        "max_abs_err": max(dd["k1_sharded_err"][k] for k in ("vs_one_call", "vs_plain")),
+        "max_scaled_err": max(dd["k1_sharded_err"][k] for k in ("scaled_vs_one_call", "scaled_vs_plain")),
+        **{k: dd["k1_sharded"][k] for k in ("ms", "one_call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "timing": "CUDA graph of 20 x (4 shard calls + combine), replayed 5 times",
+    })
+    check(kernels[-1]["launches"] > 0, "the sharded decode launched K1")
     record["kernels"] = kernels
     # K3 takes each fp32 product as two TF32 products on the bf16 path: its
     # operations at the TF32 peak (a floor for this design, not a time)

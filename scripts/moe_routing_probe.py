@@ -40,8 +40,8 @@ def probe(cfg, params, tokens: np.ndarray, device) -> list[tuple[float, float]]:
     seen = []
     real = moe.moe_apply
 
-    def spy(c, p, x, inference=False):
-        y, aux = real(c, p, x, inference=inference)
+    def spy(c, p, x, inference=False, **kw):
+        y, aux = real(c, p, x, inference=inference, **kw)
         xs = x.reshape(-1, x.shape[-1]).float()
         xs = xs / xs.norm(dim=-1, keepdim=True)
         seen.append((float(aux["moe_drop_frac"]), float((xs @ xs.T).mean())))

@@ -18,6 +18,15 @@ checkpointing launches again), so a run can show that its main path went
 through the kernels. K1 and K2 read the tensors in the model's layout
 through strides; ``ssm_scan`` folds batch and heads into the kernel's
 row axis (a copy), as the JAX package's wrapper does.
+
+On DTensors (``torch.distributed.tensor``, the sharded train step) each
+wrapper runs on every rank's local shard, the same code on both devices:
+the batch dim and the head dim keep their sharding, every other dim is
+made whole first, and the call runs on ``to_local()`` views. Where q's
+heads are split over a mesh dim that k's and v's do not divide
+(``KH % tp != 0``), k and v are replicated over it and each rank slices
+the kv heads its q heads read; their gradients then sum over that mesh
+dim (``Partial``).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
 from repro_torch.kernels.flash_attention import (
@@ -79,6 +89,9 @@ def flash_attention(
     on both devices: the forward is K2 (its plain version on the CPU), the
     backward recomputes the plain version under autograd."""
     scale = softmax_scale if softmax_scale is not None else 1.0 / q.shape[-1] ** 0.5
+    if isinstance(q, DTensor):
+        return _on_local_heads(lambda ql, kl, vl: (_FlashAttention.apply(ql, kl, vl, q_offset, window, scale),),
+                               q, (k, v), q_head_dim=2)[0]
     return _FlashAttention.apply(q, k, v, q_offset, window, scale)
 
 
@@ -96,6 +109,12 @@ def decode_attention(
     partials ``(acc (B, H, D), m (B, H), l (B, H))``.
     """
     scale = softmax_scale if softmax_scale is not None else 1.0 / q.shape[-1] ** 0.5
+    if isinstance(q, DTensor):
+        def local(ql, kl, vl, vall):
+            return decode_attention(ql, kl, vl, vall, scale, return_partials=True)
+
+        out, m, l = _on_local_heads(local, q, (k, v), q_head_dim=1, batch_only=(valid,))
+        return (out, m, l) if return_partials else (out / l.clamp_min(1e-30)[..., None]).to(q.dtype)
     normalize = not return_partials
     if q.device.type == "cpu":
         out, m, l = decode_attention_plain(q, k, v, valid, scale=scale, normalize=normalize)
@@ -157,7 +176,105 @@ def ssm_scan(x, loga, b, c, chunk: int = 256):
     x's dtype, h (B, H, N, P) fp32)``. Differentiable on both devices:
     the forward is K3 (its plain version on the CPU), the backward
     recomputes the plain version under autograd."""
+    if isinstance(x, DTensor):
+        return _ssm_scan_local(x, loga, b, c, chunk)
     batch, seq = x.shape[:2]
     p, n = x.shape[-1], b.shape[-1]
     y, h = _SsmScan.apply(*fold(x, loga, b, c, chunk), chunk)
     return unfold(y, h, batch, seq, p, n)
+
+
+# ---------------------------------------------------------------------------
+# DTensor inputs: the wrappers above on each rank's local shard
+# ---------------------------------------------------------------------------
+
+
+def _keep(placements, dims) -> list:
+    """``placements`` with every placement but ``Shard(d)`` for d in
+    ``dims`` made ``Replicate()`` (a ``Partial`` is reduced)."""
+    return [pl if isinstance(pl, Shard) and pl.dim in dims else Replicate() for pl in placements]
+
+
+def _to(x: DTensor, placements) -> DTensor:
+    return x if tuple(x.placements) == tuple(placements) else x.redistribute(x.device_mesh, placements)
+
+
+def _shard_index(mesh, placements, dim: int) -> tuple[int, int]:
+    """(this rank's shard index along tensor dim ``dim``, number of
+    shards): the mesh dims that split it, in mesh-dim order."""
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
+    return idx, n
+
+
+def _on_local_heads(fn, q: DTensor, kv, q_head_dim: int, batch_only=()):
+    """``fn(q_local, *kv_local, *batch_only_local)`` for attention on
+    DTensors; q ``(B, ..., H, D)`` with its heads on ``q_head_dim``, each
+    of ``kv`` ``(B, S, KH, D)``, each of ``batch_only`` ``(B, ...)``. Every
+    output of ``fn`` is laid out as q with its trailing dims after the
+    heads dropped or kept (``(B, H, D)`` or ``(B, H)``)."""
+    mesh = q.device_mesh
+    qpl = _keep(q.placements, (0, q_head_dim))
+    h, kh = q.shape[q_head_dim], kv[0].shape[2]
+    _, n = _shard_index(mesh, qpl, q_head_dim)
+    if h % n:  # unevenly split heads: run them whole
+        qpl = _keep(qpl, (0,))
+        n = 1
+    kv_split = n > 1 and kh % n == 0  # the kv heads split as q's do
+    kvpl = [Shard(2) if isinstance(pl, Shard) and pl.dim == q_head_dim and kv_split
+            else (Shard(0) if pl == Shard(0) else Replicate()) for pl in qpl]
+    q = _to(q, qpl)
+    ql = q.to_local()
+    if n > 1 and not kv_split:
+        # each rank reads the kv heads of its own q heads; the gradients of
+        # the replicated k and v sum over the mesh dims that split q's heads
+        idx, _ = _shard_index(mesh, qpl, q_head_dim)
+        g, hl = h // kh, h // n
+        if hl % g and g % hl:
+            raise ValueError(f"DTensor attention: {hl} local q heads of {h} do not pair with {kh} kv heads")
+        k0, k1 = idx * hl // g, (idx * hl + hl - 1) // g + 1
+        gradpl = [Partial() if isinstance(pl, Shard) and pl.dim == q_head_dim else kvpl[i]
+                  for i, pl in enumerate(qpl)]
+        kvl = [_to(t, kvpl).to_local(grad_placements=gradpl)[:, :, k0:k1] for t in kv]
+    else:
+        kvl = [_to(t, kvpl).to_local() for t in kv]
+    bpl = [Shard(0) if pl == Shard(0) else Replicate() for pl in qpl]
+    other = [_to(t, bpl).to_local() for t in batch_only]
+    outs = fn(ql, *kvl, *other)
+    res = []
+    for o in outs:
+        opl = [pl if not (isinstance(pl, Shard) and pl.dim >= o.dim()) else Replicate() for pl in qpl]
+        shape = tuple(q.shape[:q_head_dim + 1]) + tuple(o.shape[q_head_dim + 1:])
+        # contiguous, as its global stride says: DTensor views the local shard
+        res.append(DTensor.from_local(o.contiguous(), mesh, opl, run_check=False, shape=torch.Size(shape),
+                                      stride=_contiguous_stride(shape)))
+    return res
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for s in reversed(shape):
+        stride.append(acc)
+        acc *= s
+    return tuple(reversed(stride))
+
+
+def _ssm_scan_local(x: DTensor, loga, b, c, chunk: int):
+    """:func:`ssm_scan` on DTensors: batch (dim 0) and heads (dim 2) keep
+    their sharding, the scan runs on each rank's local rows and heads."""
+    mesh = x.device_mesh
+    pl = _keep(x.placements, (0, 2))
+    _, n = _shard_index(mesh, pl, 2)
+    if x.shape[2] % n:
+        pl = _keep(pl, (0,))
+    locs = [_to(t, pl).to_local() for t in (x, loga, b, c)]
+    y, h = ssm_scan(*locs, chunk)
+    hpl = [Shard(1) if p == Shard(2) else p for p in pl]  # h (B, H, N, P)
+    B, S, H, P = x.shape
+    hshape = (B, H, b.shape[-1], P)
+    y = DTensor.from_local(y.contiguous(), mesh, pl, run_check=False, shape=x.shape, stride=_contiguous_stride(x.shape))
+    h = DTensor.from_local(h, mesh, hpl, run_check=False, shape=torch.Size(hshape), stride=_contiguous_stride(hshape))
+    return y, h

@@ -8,12 +8,20 @@ batch) → (params, opt_state, metrics)`` with ``run.grad_accum_steps``
 sequential microbatches. A batch is the numpy dict of
 ``data/dataset.py``; it goes to the params' device here. Activation
 recomputation follows ``RunConfig.remat`` per period of blocks, as the
-reference's ``jax.checkpoint`` of its scan body. The serve and
-prefill steps, the shardings and the dry-run artifacts belong to
-distribution and are not ported.
+reference's ``jax.checkpoint`` of its scan body.
+
+With ``rules`` (``parallel/sharding.py``) the steps are sharded: params
+and optimizer state are DTensors placed by ``model_specs`` and
+``opt_state_specs`` (:func:`distribute_tree`), the batch is placed along
+its ``batch`` axis, each gradient is laid out as its parameter, and the
+update runs shard by shard. The serve and prefill steps with rules wait
+for a later slice; the dry-run's ``cell_artifacts``, ``batch_shardings``
+and ``cache_shapes`` for ROADMAP A9d.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -21,16 +29,31 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import model as M
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import ShardingRules, is_dtensor, sharded_context, spec_placements
 
 _LONG = ("tokens", "labels")  # index tensors: embedding rows, gathered logits
 
 
-def _to_device(batch: dict, device) -> dict:
+def distribute_tree(tree, spec_tree, mesh):
+    """``tree``'s tensors as DTensors on ``mesh``, each placed by its
+    PartitionSpec in ``spec_tree`` (``torch.distributed.tensor.
+    distribute_tensor``: every rank passes the same whole tensor)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return tree_map(lambda t, spec: distribute_tensor(t, mesh, spec_placements(mesh, spec)), tree, spec_tree)
+
+
+def _to_device(batch: dict, device, rules: Optional[ShardingRules] = None) -> dict:
     out = {key: torch.as_tensor(x, device=device) for key, x in batch.items()}
-    return {key: t.long() if key in _LONG else t for key, t in out.items()}
+    out = {key: t.long() if key in _LONG else t for key, t in out.items()}
+    if rules is None:
+        return out
+    # every input's first dim is the batch
+    return {key: distribute_tree(t, rules.spec(("batch",) + (None,) * (t.dim() - 1), t.shape), rules.mesh)
+            for key, t in out.items()}
 
 
-def make_grad_step(cfg: ModelConfig, run: RunConfig):
+def make_grad_step(cfg: ModelConfig, run: RunConfig, rules: Optional[ShardingRules] = None):
     """(params, batch) → (grads, metrics), used by the het-DP coordinator,
     which accumulates a pod-local number of microbatches before the
     weighted cross-pod combine (``core/coordinator.py``). Gradients come
@@ -40,31 +63,42 @@ def make_grad_step(cfg: ModelConfig, run: RunConfig):
     0-d tensors, detached: nothing here waits for the device.
     ``run.remat`` ("none", "dots" or "full") sets what the forward keeps
     for the backward and what it recomputes (``models/model.py::forward``).
+    With ``rules``, params are DTensors, each gradient comes back laid out
+    as its parameter, and the metrics are replicated plain tensors.
     """
 
     def loss_fn(params, batch):
-        logits, aux = M.forward(cfg, run, params, batch["tokens"], batch.get("prefix_features"))
+        logits, aux = M.forward(cfg, run, params, batch["tokens"], batch.get("prefix_features"), rules=rules)
         return M.lm_loss(cfg, run, logits[:, :-1], batch["labels"][:, 1:], batch["mask"][:, 1:], aux)
 
     def grad_step(params, batch):
         leaves = tree_leaves(params)
         live = [p.detach().requires_grad_() for p in leaves]
-        with torch.enable_grad():
-            total, metrics = loss_fn(tree_unflatten(params, live), _to_device(batch, leaves[0].device))
+        with torch.enable_grad(), sharded_context(rules):
+            total, metrics = loss_fn(tree_unflatten(params, live), _to_device(batch, leaves[0].device, rules))
             grads = torch.autograd.grad(total, live, allow_unused=True, materialize_grads=True)
+        if rules is not None:
+            # one leaf at a time, each old gradient freed as its new layout
+            # lands (a whole second list would hold a copy of every gradient)
+            grads = list(grads)
+            for i, p in enumerate(leaves):
+                if tuple(grads[i].placements) != tuple(p.placements):
+                    grads[i] = grads[i].redistribute(p.device_mesh, p.placements)
+            metrics = {k: v.full_tensor() if is_dtensor(v) else v for k, v in metrics.items()}
         return tree_unflatten(params, list(grads)), {k: v.detach() for k, v in metrics.items()}
 
     return grad_step
 
 
-def make_train_step(cfg: ModelConfig, run: RunConfig):
+def make_train_step(cfg: ModelConfig, run: RunConfig, rules: Optional[ShardingRules] = None):
     """(params, opt_state, batch) → (params, opt_state, metrics). With
     ``run.grad_accum_steps`` = k > 1 the batch is split along its first
     axis into k sequential microbatches (activation memory ÷ k); their
     gradients are summed in fp32 in place, divided by k, and their metrics
     averaged, as the reference's ``lax.scan`` does. The update is
-    ``adamw_update``, in place."""
-    grad_step = make_grad_step(cfg, run)
+    ``adamw_update``, in place. With ``rules`` every rank passes the same
+    whole batch and keeps its shards of params and optimizer state."""
+    grad_step = make_grad_step(cfg, run, rules)
     k = max(1, run.grad_accum_steps)
 
     def train_step(params, opt_state, batch):
@@ -79,8 +113,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig):
                 ms.append(m)
             grads = tree_map(lambda x: x.div_(k), gsum)
             metrics = {key: torch.stack([m[key] for m in ms]).mean() for key in ms[0]}
-        params, opt_state, opt_metrics = adamw.adamw_update(run, params, grads, opt_state)
-        metrics.update(opt_metrics)
+        with sharded_context(rules):
+            params, opt_state, opt_metrics = adamw.adamw_update(run, params, grads, opt_state)
+        metrics.update({k: v.full_tensor() if is_dtensor(v) else v for k, v in opt_metrics.items()})
         return params, opt_state, metrics
 
     return train_step

@@ -17,9 +17,13 @@ is K1 flash-decode (CUDA on the card, plain on the CPU); ``einsum`` is the
 masked-softmax reference path. The JAX package's ``*_interpret`` values
 name its Pallas interpreter and are not accepted here.
 
-The JAX package's ``pad_attention_heads_to`` only helps shard heads over a
-mesh and does not change any output; the port does not shard, so it
-ignores it.
+With ``rules`` (``parallel/sharding.py``) the training path lays q, k, v
+and the attention output out by heads over ``model`` where the head count
+divides it, at the JAX package's ``shard_constraint`` sites; on plain
+tensors, or without rules, those are the identity. ``pad_attention_heads_to``
+pads the head count with zero heads (function-preserving) so that it
+divides the mesh axis; it only helps sharding, so the port pads with
+rules only.
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamDef, apply_rope, causal_mask, norm_def, nrm, rms_norm
+from repro_torch.parallel.sharding import ShardingRules, gather_sequence, pin, shard_constraint
 
 NEG_INF = -1e30
 
@@ -38,10 +44,10 @@ NEG_INF = -1e30
 def attn_defs(cfg: ModelConfig) -> dict:
     hd = cfg.head_dim_
     defs = {
-        "wq": ParamDef((cfg.d_model, cfg.num_heads, hd), nrm()),
-        "wk": ParamDef((cfg.d_model, cfg.num_kv_heads, hd), nrm()),
-        "wv": ParamDef((cfg.d_model, cfg.num_kv_heads, hd), nrm()),
-        "wo": ParamDef((cfg.num_heads, hd, cfg.d_model), nrm(fan_in_axis=2)),
+        "wq": ParamDef((cfg.d_model, cfg.num_heads, hd), ("fsdp", "tp", None), nrm()),
+        "wk": ParamDef((cfg.d_model, cfg.num_kv_heads, hd), ("fsdp", "tp", None), nrm()),
+        "wv": ParamDef((cfg.d_model, cfg.num_kv_heads, hd), ("fsdp", "tp", None), nrm()),
+        "wo": ParamDef((cfg.num_heads, hd, cfg.d_model), ("tp", None, "fsdp"), nrm(fan_in_axis=2)),
     }
     if cfg.qk_norm:
         defs["q_norm"] = norm_def(hd)
@@ -106,20 +112,66 @@ def _chunked_attention(q, k, v, *, q_offset, window, scale, q_chunk, kv_chunk):
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def multihead_attention(run: RunConfig, q, k, v, *, q_offset=0, window=0):
+def _pad_heads(q, k, v, multiple: int):
+    """Pad head counts to a multiple (zero fake heads) so indivisible head
+    counts still shard over the model axis. Function-preserving: padded q
+    heads attend to zero-k/v fake kv heads (MHA) or ride as extra GQA
+    groups; the caller slices their outputs away. Returns (q', k', v', H)."""
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    if h % multiple == 0:
+        return q, k, v, h
+    if g == 1:  # MHA: pad q and kv head dims together
+        pad = (0, 0, 0, -(-h // multiple) * multiple - h)
+        return F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), h
+    # GQA: grow the per-kv group count until flat heads divide the axis
+    g_pad = g
+    while (kh * g_pad) % multiple:
+        g_pad += 1
+    qg = F.pad(q.reshape(b, sq, kh, g, d), (0, 0, 0, g_pad - g))
+    return qg.reshape(b, sq, kh * g_pad, d), k, v, h
+
+
+def _unpad_heads(out, h_orig, kh_orig):
+    b, sq, h_pad, d = out.shape
+    if h_pad == h_orig:
+        return out
+    g = h_orig // kh_orig
+    if g == 1:  # MHA path: flat head slice
+        return out[:, :, :h_orig]
+    g_pad = h_pad // kh_orig
+    return out.reshape(b, sq, kh_orig, g_pad, d)[:, :, :, :g].reshape(b, sq, h_orig, d)
+
+
+def multihead_attention(run: RunConfig, q, k, v, *, q_offset=0, window=0, rules: Optional[ShardingRules] = None):
     """Dispatch on the configured implementation. Shapes as in _xla_attention."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
+    kh_orig, h_orig = k.shape[2], q.shape[2]
+    pad = bool(rules is not None and run.pad_attention_heads_to)
+    if pad:
+        q, k, v, h_orig = _pad_heads(q, k, v, run.pad_attention_heads_to)
+        # the padded head dim now divides the model axis: constrain again
+        q = shard_constraint(q, rules, ("batch", None, "tp", None))
+        k = shard_constraint(k, rules, ("batch", None, "tp", None))
+        v = shard_constraint(v, rules, ("batch", None, "tp", None))
     impl = run.attention_impl
     if impl == "xla":
-        return _xla_attention(q, k, v, q_offset=q_offset, window=window, scale=scale)
-    if impl == "chunked":
-        return _chunked_attention(
+        out = _xla_attention(q, k, v, q_offset=q_offset, window=window, scale=scale)
+    elif impl == "chunked":
+        out = _chunked_attention(
             q, k, v, q_offset=q_offset, window=window, scale=scale,
             q_chunk=run.attention_chunk, kv_chunk=run.attention_chunk,
         )
-    if impl == "pallas":
-        return ops.flash_attention(q, k, v, q_offset=q_offset, window=window, softmax_scale=scale)
-    raise ValueError(f"unknown attention_impl {impl!r} (the port has xla, chunked, pallas)")
+    elif impl == "pallas":
+        out = ops.flash_attention(q, k, v, q_offset=q_offset, window=window, softmax_scale=scale)
+    else:
+        raise ValueError(f"unknown attention_impl {impl!r} (the port has xla, chunked, pallas)")
+    if pad and out.shape[2] != h_orig:
+        # the heads whole first: the unpad's split of the head dim into
+        # (KH, padded groups) cannot cut a head-sharded dim on DTensor
+        out = _unpad_heads(shard_constraint(out, rules, ("batch", None, None, None)), h_orig, kh_orig)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -127,35 +179,49 @@ def multihead_attention(run: RunConfig, q, k, v, *, q_offset=0, window=0):
 # ---------------------------------------------------------------------------
 
 
-def _project_qkv(cfg: ModelConfig, params, x, positions):
+def _heads(cfg: ModelConfig, rules, t, n_heads: int):
+    """The projection ``t`` (B, S, n_heads * hd) as (B, S, n_heads, hd).
+    With rules, the flat dim is first laid out by whole heads over
+    ``model`` (or replicated where n_heads does not divide it), so that no
+    head is cut between ranks."""
+    if rules is not None:
+        t = shard_constraint(t, rules, ("batch", None, "tp" if n_heads % rules.tp_size == 0 else None))
+    return t.view(*t.shape[:2], n_heads, cfg.head_dim_)
+
+
+def _project_qkv(cfg: ModelConfig, params, x, positions, rules: Optional[ShardingRules] = None):
     dt = getattr(torch, cfg.compute_dtype)
-    b, s, _ = x.shape
-    hd = cfg.head_dim_
+    x = gather_sequence(x, rules)
     # einsum "bsd,dhk->bshk" as one matmul on the flattened head axis
-    q = (x @ params["wq"].to(dt).flatten(1)).view(b, s, cfg.num_heads, hd)
-    k = (x @ params["wk"].to(dt).flatten(1)).view(b, s, cfg.num_kv_heads, hd)
-    v = (x @ params["wv"].to(dt).flatten(1)).view(b, s, cfg.num_kv_heads, hd)
+    q = _heads(cfg, rules, x @ pin(params["wq"].to(dt).flatten(1)), cfg.num_heads)
+    k = _heads(cfg, rules, x @ pin(params["wk"].to(dt).flatten(1)), cfg.num_kv_heads)
+    v = _heads(cfg, rules, x @ pin(params["wv"].to(dt).flatten(1)), cfg.num_kv_heads)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_constraint(q, rules, ("batch", None, "tp", None))
+    k = shard_constraint(k, rules, ("batch", None, "tp", None))
+    v = shard_constraint(v, rules, ("batch", None, "tp", None))
     return q, k, v
 
 
 def _out_proj(cfg: ModelConfig, params, out):
     """einsum "bshk,hkd->bsd"."""
     dt = getattr(torch, cfg.compute_dtype)
-    return out.flatten(2) @ params["wo"].to(dt).flatten(0, 1)
+    return out.flatten(2) @ pin(params["wo"].to(dt).flatten(0, 1))
 
 
-def attn_apply_full(cfg: ModelConfig, run: RunConfig, params: dict, x, positions, return_kv: bool = False):
+def attn_apply_full(cfg: ModelConfig, run: RunConfig, params: dict, x, positions, return_kv: bool = False,
+                    rules: Optional[ShardingRules] = None):
     """Training / prefill attention over the full sequence.
 
     x: (B, S, D) post-norm residual input; positions: (S,) or (B, S).
     """
-    q, k, v = _project_qkv(cfg, params, x, positions)
-    out = multihead_attention(run, q, k, v, q_offset=0, window=cfg.sliding_window)
+    q, k, v = _project_qkv(cfg, params, x, positions, rules)
+    out = multihead_attention(run, q, k, v, q_offset=0, window=cfg.sliding_window, rules=rules)
+    out = shard_constraint(out, rules, ("batch", None, "tp", None))
     y = _out_proj(cfg, params, out)
     if return_kv:
         return y, (k, v)
@@ -171,6 +237,16 @@ def attn_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -
     shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_cache_axes() -> dict:
+    """Logical axes of one layer's ``k`` and ``v`` (B, cap, KH, hd): the
+    cache sequence shards over ``model`` (sequence-sharded flash-decode,
+    ``parallel/flash_decode.py``)."""
+    return {
+        "k": ("batch", "kv_seq", None, None),
+        "v": ("batch", "kv_seq", None, None),
+    }
 
 
 def attn_fill_cache(cfg: ModelConfig, cache: dict, k, v) -> dict:

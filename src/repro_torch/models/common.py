@@ -1,21 +1,29 @@
 """Shared building blocks: declarative params, norms, RoPE, SwiGLU MLP.
 
 Port of ``repro/models/common.py``. A parameter is declared once as a
-:class:`ParamDef` (shape + init); :func:`build_params` materialises a tree
-of them on a ``torch.Generator``. The JAX package's logical sharding axes
-are dropped: the port does not shard. ``tree_leaves``, ``tree_map`` and
-``tree_unflatten`` stand in for ``jax.tree`` in the optimizer, the
-training steps and the checkpoints.
+:class:`ParamDef` (shape, logical sharding axes, init); :func:`build_params`
+materialises a tree of them on a ``torch.Generator`` and :func:`build_specs`
+derives the PartitionSpec tree from the same source, so sharding can never
+drift from shapes. The specs become DTensor placements in
+``parallel/sharding.py``; ``models/model.py`` (``model_specs``,
+``cache_specs``), ``models/moe.py::resolve_moe_axes``,
+``optim/adamw.py::opt_state_specs`` and ``launch/steps.py::distribute_tree``
+build on them. The dry-run's shape and cell helpers (``build_shapes``,
+``model_shapes``, ``opt_state_shapes``, ``cell_artifacts``) wait for
+ROADMAP A9d. ``tree_leaves``, ``tree_map`` and ``tree_unflatten`` stand in for
+``jax.tree`` in the optimizer, the training steps and the checkpoints.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.sharding import PartitionSpec, ShardingRules
 
 # init(generator, shape, device) -> fp32 tensor
 InitFn = Callable[[torch.Generator, Sequence[int], torch.device], torch.Tensor]
@@ -24,7 +32,11 @@ InitFn = Callable[[torch.Generator, Sequence[int], torch.device], torch.Tensor]
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]  # logical sharding axis per dim
     init: InitFn
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def nrm(scale: float = 1.0, fan_in_axis: int = 0) -> InitFn:
@@ -85,6 +97,16 @@ def build_params(defs, gen: torch.Generator, device, dtype=torch.float32):
     return [build_params(v, gen, device, dtype) for v in defs]
 
 
+def build_specs(defs, rules: Optional[ShardingRules]):
+    """The PartitionSpec tree of a tree of ParamDefs (``P()`` everywhere
+    without rules)."""
+    if is_def(defs):
+        return PartitionSpec() if rules is None else rules.spec(defs.axes, defs.shape)
+    if isinstance(defs, dict):
+        return {k: build_specs(v, rules) for k, v in defs.items()}
+    return [build_specs(v, rules) for v in defs]
+
+
 def param_count(defs) -> int:
     if is_def(defs):
         return math.prod(defs.shape)
@@ -143,7 +165,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 def norm_def(dim: int) -> ParamDef:
     # zero-centred scale (`1 + g`), standard for stable bf16 training.
-    return ParamDef((dim,), zeros_init)
+    return ParamDef((dim,), (None,), zeros_init)
 
 
 # --- rotary embeddings ------------------------------------------------------
@@ -170,9 +192,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def mlp_defs(d_model: int, d_ff: int) -> dict:
     return {
-        "gate": ParamDef((d_model, d_ff), nrm()),
-        "up": ParamDef((d_model, d_ff), nrm()),
-        "down": ParamDef((d_ff, d_model), nrm()),
+        "gate": ParamDef((d_model, d_ff), ("fsdp", "tp"), nrm()),
+        "up": ParamDef((d_model, d_ff), ("fsdp", "tp"), nrm()),
+        "down": ParamDef((d_ff, d_model), ("tp", "fsdp"), nrm()),
     }
 
 

@@ -55,6 +55,7 @@ from repro_torch.models import ssm
 from repro_torch.models.common import (
     ParamDef,
     build_params,
+    build_specs,
     mlp_apply,
     mlp_defs,
     norm_def,
@@ -63,6 +64,15 @@ from repro_torch.models.common import (
     rms_norm,
     softcap,
     trunc_nrm,
+)
+from repro_torch.parallel.sharding import (
+    PartitionSpec,
+    ShardingRules,
+    gather_sequence,
+    pin,
+    replicate,
+    shard_constraint,
+    sharded_context,
 )
 
 FRONTEND_FEATURE_DIM = {"audio_frames": 128, "vision_patches": 1152}
@@ -111,14 +121,14 @@ def _block_defs(cfg: ModelConfig, i: int) -> dict:
 
 def model_defs(cfg: ModelConfig) -> dict:
     defs = {
-        "embed": ParamDef((cfg.vocab_size, cfg.d_model), trunc_nrm(0.02)),
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("tp", "fsdp"), trunc_nrm(0.02)),
         "layers": [_block_defs(cfg, i) for i in range(cfg.num_layers)],
         "final_norm": norm_def(cfg.d_model),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size), nrm())
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size), ("fsdp", "tp"), nrm())
     if cfg.frontend:
-        defs["frontend"] = {"proj": ParamDef((FRONTEND_FEATURE_DIM[cfg.frontend], cfg.d_model), nrm())}
+        defs["frontend"] = {"proj": ParamDef((FRONTEND_FEATURE_DIM[cfg.frontend], cfg.d_model), (None, "fsdp"), nrm())}
     return defs
 
 
@@ -127,6 +137,13 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32) -> d
     them in the compute dtype: that gives the values the JAX package's
     cast-at-use gives."""
     return build_params(model_defs(cfg), gen, gen.device, dtype)
+
+
+def model_specs(cfg: ModelConfig, rules: Optional[ShardingRules]):
+    """The PartitionSpec tree of :func:`init_model`'s params. ``layers[i]``
+    gets the JAX package's spec of ``layers/b{i % period}`` without its
+    leading (replicated) stack dim."""
+    return build_specs(model_defs(cfg), rules)
 
 
 def count_params_exact(cfg: ModelConfig) -> int:
@@ -152,35 +169,37 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def _ffn(cfg, blk, h, inference: bool):
+def _ffn(cfg, blk, h, inference: bool, rules: Optional[ShardingRules] = None):
     """The block's FFN, dense or MoE, on the residual ``h``. Returns ``(h,
     aux)``: the MoE metrics, or ``{}`` where the block has no MoE."""
     if "moe" in blk:
         hn = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
-        y, aux = moe_lib.moe_apply(cfg, blk["moe"], hn, inference=inference)
+        y, aux = moe_lib.moe_apply(cfg, blk["moe"], hn, inference=inference, rules=rules)
         return h + y, aux
     if "ffn" in blk:
-        hn = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
-        h = h + mlp_apply(blk["ffn"], hn, _compute_dtype(cfg))
+        hn = gather_sequence(rms_norm(h, blk["ffn_norm"], cfg.norm_eps), rules)
+        h = h + pin(mlp_apply(blk["ffn"], hn, _compute_dtype(cfg)))
     return h, {}
 
 
-def _embed(cfg, params, tokens, prefix_features=None):
+def _embed(cfg, params, tokens, prefix_features=None, rules: Optional[ShardingRules] = None):
     """Token embeddings (B, S, D), after the projected ``prefix_features``
-    (B, P, feature dim) where given: (B, P + S, D)."""
+    (B, P, feature dim) where given: (B, P + S, D). A sharded table is
+    gathered whole first: DTensor's rule for a vocab-sharded embedding
+    cannot reduce it when the batch is sharded too."""
     dt = _compute_dtype(cfg)
-    h = F.embedding(tokens, params["embed"].to(dt))
+    h = F.embedding(tokens, replicate(params["embed"].to(dt)))
     if prefix_features is not None:
         pf = prefix_features.to(dt) @ params["frontend"]["proj"].to(dt)
         h = torch.cat([pf, h], dim=1)
-    return h
+    return shard_constraint(h, rules, ("batch", "sp", None))
 
 
-def _head(cfg, params, h):
+def _head(cfg, params, h, rules: Optional[ShardingRules] = None):
     dt = _compute_dtype(cfg)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = gather_sequence(rms_norm(h, params["final_norm"], cfg.norm_eps), rules)
     w = params["embed"].to(dt).T if cfg.tie_embeddings else params["lm_head"].to(dt)
-    return softcap(h @ w, cfg.logit_softcap)
+    return shard_constraint(softcap(h @ w, cfg.logit_softcap), rules, ("batch", "sp", "tp"))
 
 
 # ---------------------------------------------------------------------------
@@ -188,27 +207,33 @@ def _head(cfg, params, h):
 # ---------------------------------------------------------------------------
 
 
-def _block_full(cfg, run, blk, kind, h, positions):
+def _block_full(cfg, run, blk, kind, h, positions, rules=None):
     """One block over the whole sequence (no cache), training capacity.
-    Returns ``(h, aux)``."""
+    Returns ``(h, aux)``. Each mixer's and FFN's output is pinned
+    (``parallel/sharding.py::pin``): on DTensors its gradient comes back
+    from the sequence-sharded residual laid out as the output was, which
+    the projection's backward can fold into rows."""
+    aux = {}
     if kind == "mlstm":
-        return h + ssm.mlstm_apply_full(cfg, blk["mlstm"], h, chunk=run.ssd_chunk), {}
-    if kind == "slstm":
-        return h + ssm.slstm_apply_full(cfg, blk["slstm"], h), {}
-    hn = rms_norm(h, blk["norm"], cfg.norm_eps)
-    if kind == "mamba":
-        h = h + ssm.mamba_apply_full(cfg, blk["mamba"], hn, chunk=run.ssd_chunk)
+        h = h + pin(ssm.mlstm_apply_full(cfg, blk["mlstm"], gather_sequence(h, rules), chunk=run.ssd_chunk))
+    elif kind == "slstm":
+        h = h + pin(ssm.slstm_apply_full(cfg, blk["slstm"], gather_sequence(h, rules)))
     else:
-        h = h + attn.attn_apply_full(cfg, run, blk["attn"], hn, positions)
-    return _ffn(cfg, blk, h, inference=False)
+        hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+        if kind == "mamba":
+            h = h + pin(ssm.mamba_apply_full(cfg, blk["mamba"], hn, chunk=run.ssd_chunk, rules=rules))
+        else:
+            h = h + pin(attn.attn_apply_full(cfg, run, blk["attn"], hn, positions, rules=rules))
+        h, aux = _ffn(cfg, blk, h, inference=False, rules=rules)
+    return shard_constraint(h, rules, ("batch", "sp", None)), aux
 
 
-def _period(cfg, run, blocks, kinds, positions, h):
+def _period(cfg, run, blocks, kinds, positions, rules, h):
     """One period of blocks, the JAX package's scan body. Returns ``(h,
     aux)``, the MoE metrics summed over the period's blocks."""
     sums = {}
     for blk, kind in zip(blocks, kinds):
-        h, aux = _block_full(cfg, run, blk, kind, h, positions)
+        h, aux = _block_full(cfg, run, blk, kind, h, positions, rules)
         for key, v in aux.items():
             sums[key] = sums[key] + v if key in sums else v
     return h, sums
@@ -237,7 +262,7 @@ def _remat(run: RunConfig, fn, h):
 
 
 def forward(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor,
-            prefix_features: Optional[torch.Tensor] = None):
+            prefix_features: Optional[torch.Tensor] = None, rules: Optional[ShardingRules] = None):
     """Training/eval forward. tokens: (B, S), after the frontend's
     ``prefix_features`` (B, P, feature dim) where given. Returns (logits
     (B, P + S, V), aux).
@@ -246,23 +271,28 @@ def forward(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor
     body) at a time, each period under ``run.remat`` (:func:`_remat`).
     ``aux`` holds the MoE metrics as the JAX package reports them: summed
     over the blocks of each period, then averaged over the periods; zeros
-    for a stack without MoE."""
-    h = _embed(cfg, params, tokens, prefix_features)
-    positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    kinds = [kind for kind, _ in _kind_index(cfg)]
-    p = cfg.period
-    periods = []
-    for start in range(0, cfg.num_layers, p):
-        body = functools.partial(_period, cfg, run, params["layers"][start:start + p], kinds[start:start + p],
-                                 positions)
-        h, sums = _remat(run, body, h)
-        periods.append(sums)
-    if periods[0]:
-        aux = {key: torch.stack([sums[key] for sums in periods]).mean() for key in periods[0]}
-    else:
-        zero = torch.zeros((), device=h.device)
-        aux = {"moe_aux": zero, "moe_drop_frac": zero}
-    return _head(cfg, params, h), aux
+    for a stack without MoE.
+
+    With ``rules``, params and tokens are DTensors (``launch/steps.py::
+    distribute_tree``) and the activations are laid out at the JAX
+    package's ``shard_constraint`` sites; without, those are the identity."""
+    with sharded_context(rules):
+        h = _embed(cfg, params, tokens, prefix_features, rules)
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        kinds = [kind for kind, _ in _kind_index(cfg)]
+        p = cfg.period
+        periods = []
+        for start in range(0, cfg.num_layers, p):
+            body = functools.partial(_period, cfg, run, params["layers"][start:start + p], kinds[start:start + p],
+                                     positions, rules)
+            h, sums = _remat(run, body, h)
+            periods.append(sums)
+        if periods[0]:
+            aux = {key: torch.stack([sums[key] for sums in periods]).mean() for key in periods[0]}
+        else:
+            zero = torch.zeros((), device=h.device)
+            aux = {"moe_aux": zero, "moe_drop_frac": zero}
+        return _head(cfg, params, h, rules), aux
 
 
 def prefill(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor, max_len: int,
@@ -359,6 +389,42 @@ def decode_step(
     else:
         pos += active.to(pos.dtype)
     return logits, cache
+
+
+def _block_cache_axes(kind: str) -> dict:
+    """Logical axes of one layer's cache entries of ``kind``, keyed as the
+    port's cache keys them."""
+    if kind == "attn":
+        return attn.attn_cache_axes()
+    if kind == "mamba":
+        return {"mamba": ssm.mamba_cache_axes()}
+    if kind == "mlstm":
+        return {"mlstm": ssm.mlstm_cache_axes()}
+    if kind == "slstm":
+        return {"slstm": ssm.slstm_cache_axes()}
+    raise ValueError(kind)
+
+
+def _spec_tree(template, axes, rules):
+    """Specs of a stacked cache subtree: each tensor (L, ...) gets a
+    replicated layer dim before its per-layer axes."""
+    if isinstance(template, dict):
+        return {k: _spec_tree(template[k], axes[k], rules) for k in template}
+    if rules is None:
+        return PartitionSpec()
+    return rules.spec((None,) + tuple(axes), (0,) + tuple(template.shape[1:]))
+
+
+def cache_specs(cfg: ModelConfig, rules: Optional[ShardingRules], batch: int, max_len: int) -> dict:
+    """The PartitionSpec tree of :func:`init_cache`'s output. Each tensor
+    stacked over the layers of its kind gets the JAX package's spec of
+    that kind's per-layer cache (``layers/b{j}/<kind>``)."""
+    template = init_cache(cfg, batch, max_len, "meta")
+    out = {"pos": PartitionSpec()}
+    for kind in _kind_counts(cfg):
+        axes = _block_cache_axes(kind)
+        out.update(_spec_tree({k: template[k] for k in axes}, axes, rules))
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:

@@ -24,29 +24,42 @@ expert index comes first. ``torch.topk`` breaks such ties otherwise, so
 the port takes the first ``k`` of a stable descending sort. The order
 picks the experts and fixes the order in which capacity positions count.
 
-The JAX package's expert-parallel sharding is not ported: the port runs on
-one device.
+With ``rules`` the expert products shard as the JAX package's do: the
+expert dim over ``model`` where E divides it (expert parallelism), else the
+slot dim (``resolve_moe_axes``). On DTensors the routing, the dispatch
+scatter and the combine gather run on whole tensors, the same on every
+rank: DTensor has no sharding rule for them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamDef, nrm
+from repro_torch.parallel.sharding import ShardingRules, replicated_like, shard_constraint, whole
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
     e, d, f = cfg.num_experts, cfg.d_model, cfg.ffn_dim
     return {
-        "router": ParamDef((d, e), nrm()),
-        "gate": ParamDef((e, d, f), nrm(fan_in_axis=1)),
-        "up": ParamDef((e, d, f), nrm(fan_in_axis=1)),
-        "down": ParamDef((e, f, d), nrm(fan_in_axis=1)),
+        "router": ParamDef((d, e), ("fsdp", None), nrm()),
+        "gate": ParamDef((e, d, f), ("expert", "fsdp", None), nrm(fan_in_axis=1)),
+        "up": ParamDef((e, d, f), ("expert", "fsdp", None), nrm(fan_in_axis=1)),
+        "down": ParamDef((e, f, d), ("expert", None, "fsdp"), nrm(fan_in_axis=1)),
     }
+
+
+def resolve_moe_axes(cfg: ModelConfig, rules: Optional[ShardingRules]) -> bool:
+    """True where the expert dim takes the ``model`` axis (expert
+    parallelism: E divides it); else the experts replicate and shard
+    inside each expert (in-expert TP)."""
+    if rules is None:
+        return False
+    return cfg.num_experts % max(1, rules.tp_size) == 0
 
 
 def _top_k_routing(logits: torch.Tensor, k: int):
@@ -86,7 +99,8 @@ def route(cfg: ModelConfig, params: dict, xg: torch.Tensor, inference: bool) -> 
     return Routing(probs, top_p, top_i, pos, pos < cap, sel.sum(1), cap)
 
 
-def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, inference: bool = False):
+def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, inference: bool = False,
+              rules: Optional[ShardingRules] = None):
     """x (B, S, D) -> (y (B, S, D), {"moe_aux", "moe_drop_frac"}). S must be
     at most ``moe_group_size`` or a multiple of it (the JAX package asserts
     the same; neither pads).
@@ -103,22 +117,30 @@ def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, inference: bool =
     if s % g:
         raise ValueError(f"moe_apply: sequence {s} is not a multiple of the dispatch group {g}")
     ng = b * (s // g)
-    xg = x.reshape(ng, g, d)
-    r = route(cfg, params, xg, inference)
+    # on DTensors the routing, the dispatch scatter and the combine gather
+    # (sort, scatter_, cumsum, index_copy_, indexing: no DTensor sharding
+    # rules) run on the whole tensors, replicated on every rank; the
+    # experts' products run sharded
+    xg = whole(x).reshape(ng, g, d)
+    r = route(cfg, {"router": whole(params["router"])}, xg, inference)
 
     # each pair's row of the expert buffer (E, ng * C, D); a dropped pair
     # goes to a spare last row that nothing reads
     n_rows = e * ng * r.cap
-    grp = torch.arange(ng, device=x.device).view(ng, 1, 1)
+    grp = torch.arange(ng, device=xg.device).view(ng, 1, 1)
     row = torch.where(r.keep, r.top_i * (ng * r.cap) + grp * r.cap + r.pos, n_rows).reshape(-1)
     tok = xg.reshape(ng * g, 1, d).expand(ng * g, k, d).reshape(-1, d)
-    xe = x.new_zeros((n_rows + 1, d)).index_copy_(0, row, tok)[:n_rows].view(e, ng * r.cap, d)
+    xe = xg.new_zeros((n_rows + 1, d)).index_copy_(0, row, tok)[:n_rows].view(e, ng * r.cap, d)
+    # the expert dim takes ``model`` where E divides it, else the slots do
+    ec_axes = ("expert", "moe_tp", None)
+    xe = shard_constraint(replicated_like(xe, x), rules, ec_axes)
     h = F.silu(torch.bmm(xe, params["gate"].to(dt))) * torch.bmm(xe, params["up"].to(dt))
-    ye = torch.bmm(h, params["down"].to(dt)).view(n_rows, d)
+    h = shard_constraint(h, rules, ec_axes)
+    ye = whole(shard_constraint(torch.bmm(h, params["down"].to(dt)), rules, ec_axes)).view(n_rows, d)
     # a dropped pair reads any row and weighs it by a gate of 0
     out = ye[row.clamp_max(n_rows - 1)].view(ng, g, k, d)
     gates = (r.top_p * r.keep).to(dt)
-    y = (out.float() * gates.float()[..., None]).sum(2).to(dt)
+    y = replicated_like((out.float() * gates.float()[..., None]).sum(2).to(dt), x)
 
     # counts over a count as the JAX package takes them: times the fp32
     # reciprocal of the count, so the drop share is the same bits

@@ -18,6 +18,8 @@ place, for active rows only.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -33,6 +35,7 @@ from repro_torch.models.common import (
     uniform_init,
     zeros_init,
 )
+from repro_torch.parallel.sharding import ShardingRules, gather_sequence, shard_constraint
 
 DEFAULT_CHUNK = 256
 MAMBA_HEAD_DIM = 128
@@ -80,19 +83,19 @@ def mamba_defs(cfg: ModelConfig) -> dict:
     h = mamba_heads(cfg)
     w = cfg.conv_width
     return {
-        "wz": ParamDef((d, di), nrm()),
-        "wx": ParamDef((d, di), nrm()),
-        "wb": ParamDef((d, n), nrm()),
-        "wc": ParamDef((d, n), nrm()),
-        "wdt": ParamDef((d, h), nrm()),
-        "dt_bias": ParamDef((h,), uniform_init(-4.0, -1.0)),
-        "a_log": ParamDef((h,), uniform_init(0.0, 1.3)),  # A in [1, e^1.3]
-        "d_skip": ParamDef((h,), ones_init),
-        "conv_x": ParamDef((w, di), nrm(fan_in_axis=0)),
-        "conv_b": ParamDef((w, n), nrm(fan_in_axis=0)),
-        "conv_c": ParamDef((w, n), nrm(fan_in_axis=0)),
+        "wz": ParamDef((d, di), ("fsdp", "tp"), nrm()),
+        "wx": ParamDef((d, di), ("fsdp", "tp"), nrm()),
+        "wb": ParamDef((d, n), ("fsdp", None), nrm()),
+        "wc": ParamDef((d, n), ("fsdp", None), nrm()),
+        "wdt": ParamDef((d, h), ("fsdp", "tp"), nrm()),
+        "dt_bias": ParamDef((h,), ("tp",), uniform_init(-4.0, -1.0)),
+        "a_log": ParamDef((h,), ("tp",), uniform_init(0.0, 1.3)),  # A in [1, e^1.3]
+        "d_skip": ParamDef((h,), ("tp",), ones_init),
+        "conv_x": ParamDef((w, di), (None, "tp"), nrm(fan_in_axis=0)),
+        "conv_b": ParamDef((w, n), (None, None), nrm(fan_in_axis=0)),
+        "conv_c": ParamDef((w, n), (None, None), nrm(fan_in_axis=0)),
         "gate_norm": norm_def(di),
-        "wo": ParamDef((di, d), nrm()),
+        "wo": ParamDef((di, d), ("tp", "fsdp"), nrm()),
     }
 
 
@@ -147,15 +150,16 @@ def _mamba_out(cfg, params, y, xh, z):
     return y @ params["wo"].to(dt_)
 
 
-def mamba_apply_full(cfg: ModelConfig, params, x, chunk=DEFAULT_CHUNK, return_state=False):
+def mamba_apply_full(cfg: ModelConfig, params, x, chunk=DEFAULT_CHUNK, return_state=False,
+                     rules: Optional[ShardingRules] = None):
     """x: (B, S, D). With ``return_state`` also the decode cache the prompt
     leaves: ``{"conv_x", "conv_b", "conv_c"}`` (the last W - 1 raw inputs
     of each conv) and ``"ssm"``, the final state (B, H, N, P) fp32."""
     dt_ = _dtype(cfg)
     B, S, _ = x.shape
     H, P, N = mamba_heads(cfg), MAMBA_HEAD_DIM, cfg.d_state
-    z, xin, bmat, cmat, dt, loga, state = _mamba_project(cfg, params, x)
-    xh = xin.view(B, S, H, P)
+    z, xin, bmat, cmat, dt, loga, state = _mamba_project(cfg, params, gather_sequence(x, rules))
+    xh = shard_constraint(xin.view(B, S, H, P), rules, ("batch", None, "tp", None))
     bh = bmat[:, :, None, :] * dt[..., None]  # (B, S, H, N) fp32, rounded below as the reference rounds it
     ch = cmat[:, :, None, :].expand(B, S, H, N)
     y, state["ssm"] = chunked_ssd(xh, loga, bh.to(dt_), ch, chunk=chunk)
@@ -173,6 +177,16 @@ def mamba_init_cache(cfg: ModelConfig, batch: int, device) -> dict:
         "conv_b": torch.zeros((batch, w - 1, N), dtype=dt_, device=device),
         "conv_c": torch.zeros((batch, w - 1, N), dtype=dt_, device=device),
         "ssm": torch.zeros((batch, H, N, P), dtype=torch.float32, device=device),
+    }
+
+
+def mamba_cache_axes() -> dict:
+    """Logical axes of one layer's Mamba state, as :func:`mamba_init_cache`."""
+    return {
+        "conv_x": ("batch", None, "tp"),
+        "conv_b": ("batch", None, None),
+        "conv_c": ("batch", None, None),
+        "ssm": ("batch", "tp", None, None),
     }
 
 
@@ -209,19 +223,19 @@ def mlstm_defs(cfg: ModelConfig) -> dict:
     di = H * hd
     return {
         "mixer_norm": norm_def(d),
-        "wq": ParamDef((d, H, hd), nrm()),
-        "wk": ParamDef((d, H, hd), nrm()),
-        "wv": ParamDef((d, H, hd), nrm()),
-        "wi": ParamDef((d, H), nrm()),
-        "wf": ParamDef((d, H), nrm()),
-        "bi": ParamDef((H,), zeros_init),
-        "bf": ParamDef((H,), const_init(3.0)),  # open forget gates
+        "wq": ParamDef((d, H, hd), ("fsdp", "tp", None), nrm()),
+        "wk": ParamDef((d, H, hd), ("fsdp", "tp", None), nrm()),
+        "wv": ParamDef((d, H, hd), ("fsdp", "tp", None), nrm()),
+        "wi": ParamDef((d, H), ("fsdp", "tp"), nrm()),
+        "wf": ParamDef((d, H), ("fsdp", "tp"), nrm()),
+        "bi": ParamDef((H,), ("tp",), zeros_init),
+        "bf": ParamDef((H,), ("tp",), const_init(3.0)),  # open forget gates
         "head_norm": norm_def(di),
-        "wo": ParamDef((di, d), nrm()),
+        "wo": ParamDef((di, d), ("tp", "fsdp"), nrm()),
         # xLSTM projection sub-block (the arch has d_ff = 0)
-        "up_gate": ParamDef((d, 2 * d), nrm()),
-        "up": ParamDef((d, 2 * d), nrm()),
-        "down": ParamDef((2 * d, d), nrm()),
+        "up_gate": ParamDef((d, 2 * d), ("fsdp", "tp"), nrm()),
+        "up": ParamDef((d, 2 * d), ("fsdp", "tp"), nrm()),
+        "down": ParamDef((2 * d, d), ("tp", "fsdp"), nrm()),
         "proj_norm": norm_def(d),
     }
 
@@ -276,6 +290,13 @@ def mlstm_init_cache(cfg: ModelConfig, batch: int, device) -> torch.Tensor:
     return torch.zeros((batch, H, hd, hd + 1), dtype=torch.float32, device=device)
 
 
+def mlstm_cache_axes() -> tuple:
+    """Logical axes of one layer's mLSTM memory (B, H, hd, hd + 1); the JAX
+    package keeps it under ``{"state": ...}``, the port's cache holds the
+    tensor itself."""
+    return ("batch", "tp", None, None)
+
+
 def mlstm_apply_step(cfg: ModelConfig, params, state, x):
     """x: (B, 1, D); state (B, H, hd, hd + 1) fp32. Returns (out, new state)."""
     dt = _dtype(cfg)
@@ -301,13 +322,13 @@ def slstm_defs(cfg: ModelConfig) -> dict:
     dh = d // H
 
     def gate():
-        return ParamDef((d, d), nrm())
+        return ParamDef((d, d), ("fsdp", "tp"), nrm())
 
     def rec():
-        return ParamDef((H, dh, dh), nrm(fan_in_axis=1))
+        return ParamDef((H, dh, dh), ("tp", None, None), nrm(fan_in_axis=1))
 
     def bias(v=0.0):
-        return ParamDef((d,), const_init(v))
+        return ParamDef((d,), ("tp",), const_init(v))
 
     return {
         "mixer_norm": norm_def(d),
@@ -315,10 +336,10 @@ def slstm_defs(cfg: ModelConfig) -> dict:
         "ri": rec(), "rf": rec(), "rz": rec(), "ro": rec(),
         "bi": bias(), "bf": bias(3.0), "bz": bias(), "bo": bias(),
         "out_norm": norm_def(d),
-        "w_out": ParamDef((d, d), nrm()),
-        "up_gate": ParamDef((d, 2 * d), nrm()),
-        "up": ParamDef((d, 2 * d), nrm()),
-        "down": ParamDef((2 * d, d), nrm()),
+        "w_out": ParamDef((d, d), ("tp", "fsdp"), nrm()),
+        "up_gate": ParamDef((d, 2 * d), ("fsdp", "tp"), nrm()),
+        "up": ParamDef((d, 2 * d), ("fsdp", "tp"), nrm()),
+        "down": ParamDef((2 * d, d), ("tp", "fsdp"), nrm()),
         "proj_norm": norm_def(d),
     }
 
@@ -376,6 +397,13 @@ def slstm_init_cache(cfg: ModelConfig, batch: int, device) -> dict:
     z32 = torch.zeros((batch, d), dtype=torch.float32, device=device)
     return {"h": torch.zeros((batch, d), dtype=_dtype(cfg), device=device),
             "c": z32, "n": z32.clone(), "m": torch.full_like(z32, M_INIT)}
+
+
+def slstm_cache_axes() -> dict:
+    """Logical axes of one layer's sLSTM carry, each (B, d); the JAX
+    package's tuple ``(h, c, n, m)`` is the port's dict."""
+    ax = ("batch", "tp")
+    return {"h": ax, "c": ax, "n": ax, "m": ax}
 
 
 def slstm_apply_full(cfg: ModelConfig, params, x, return_state=False):

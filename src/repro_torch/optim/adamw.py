@@ -10,9 +10,10 @@ moments (20.7 GB) beside the first, on top of the gradients and
 activations of a training step, more than an 80 GB card holds. The
 gradients are clipped leaf by leaf as the update reaches them. The
 schedule and the bias corrections are computed in fp32 tensors, as the
-reference computes them, not in Python floats. Sharding specs and shapes
-(``opt_state_specs``, ``opt_state_shapes``) belong to distribution and
-are not ported.
+reference computes them, not in Python floats. ``opt_state_specs`` gives
+the state's PartitionSpec tree; on DTensor leaves the update runs shard
+by shard and the global norm reduces each leaf to a plain fp32 scalar
+first. ``opt_state_shapes`` belongs to the dry-run (ROADMAP A9d).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.parallel.sharding import PartitionSpec, is_dtensor
 
 
 def init_opt_state(params, moments_dtype=torch.float32) -> dict:
@@ -32,6 +34,12 @@ def init_opt_state(params, moments_dtype=torch.float32) -> dict:
 
     step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
     return {"step": step, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
+
+
+def opt_state_specs(param_specs) -> dict:
+    """The optimizer state's PartitionSpec tree: each moment lives where its
+    parameter shard lives (ZeRO-style), ``step`` is replicated."""
+    return {"step": PartitionSpec(), "mu": param_specs, "nu": param_specs}
 
 
 def lr_schedule(run: RunConfig, step: torch.Tensor) -> torch.Tensor:
@@ -44,10 +52,16 @@ def lr_schedule(run: RunConfig, step: torch.Tensor) -> torch.Tensor:
     return run.learning_rate * warm * cos
 
 
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum(x²) in fp32 as a plain 0-d tensor (a DTensor's is reduced over
+    its mesh first: its shards' partial sums do not add to plain tensors)."""
+    s = torch.sum(torch.square(x.to(torch.float32)))
+    return s.full_tensor() if is_dtensor(s) else s
+
+
 def global_norm(tree) -> torch.Tensor:
     """The fp32 L2 norm over every leaf of ``tree`` (0-d tensor)."""
-    leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves))
+    return torch.sqrt(sum(_square_sum(x) for x in tree_leaves(tree)))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

@@ -1,0 +1,266 @@
+"""Logical-axis sharding rules for the (pod, data, model) mesh.
+
+Port of ``repro/parallel/sharding.py``. Every parameter and activation axis
+of the model carries a *logical* axis name (``ParamDef.axes``); this module
+maps logical names to physical mesh axes. The mapping adapts to the mesh
+(single-pod ``(data, model)``, multi-pod ``(pod, data, model)``), and with
+no rules every constraint is the identity, as the JAX package's are off-mesh.
+
+Logical axes
+------------
+``batch``    data-parallel batch → all DP axes ("pod","data")
+``fsdp``     parameter shard axis for ZeRO-3 → all DP axes (or None w/o FSDP)
+``tp``       tensor-parallel → "model"
+``sp``       sequence-parallel activations → "model"
+``expert``   MoE expert-parallel → "model" when divisible, else None
+``kv_seq``   decode KV-cache sequence shards → "model" (flash-decode)
+``null``     explicit replication
+
+A spec is a :class:`PartitionSpec`, one entry per tensor dim: ``None``, one
+mesh axis name, or a tuple of several. On ``torch.distributed.tensor`` it
+becomes one placement per mesh dim (:func:`placements`): ``Shard(dim)`` for
+the tensor dim that uses the mesh dim, else ``Replicate()``. A tensor dim
+split over two mesh dims is split in mesh-dim order, so such an entry must
+name its axes in the mesh's order (JAX splits major to minor in the entry's
+order; the two agree only then, and :func:`placements` asserts it).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence
+
+import torch
+
+
+class PartitionSpec(tuple):
+    """A tuple of per-dim mesh axes, written as the JAX package's
+    ``PartitionSpec`` iterates: an entry naming one mesh axis is the bare
+    name, ``("data",)`` becomes ``"data"``."""
+
+    def __new__(cls, *entries):
+        norm = []
+        for e in entries:
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                e = e[0] if len(e) == 1 else (e or None)
+            norm.append(e)
+        return super().__new__(cls, norm)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclass(frozen=True)
+class Axes:
+    """Physical mesh-axis names, in order."""
+
+    names: tuple[str, ...]
+
+    @property
+    def dp(self) -> tuple[str, ...]:
+        return tuple(a for a in self.names if a in ("pod", "data"))
+
+    @property
+    def has_model(self) -> bool:
+        return "model" in self.names
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """Logical→physical mapping, derived from the mesh + run flags. ``mesh``
+    is the ``DeviceMesh`` the rules came from (:func:`rules_from_mesh`), or
+    None; it takes no part in equality."""
+
+    mesh_axes: tuple[str, ...]
+    mesh_shape: tuple[int, ...]
+    fsdp: bool = True
+    sequence_parallel: bool = True
+    mesh: Any = field(default=None, compare=False, repr=False)
+
+    # ------------------------------------------------------------------
+    def axis_size(self, name: str) -> int:
+        if name not in self.mesh_axes:
+            return 1
+        return self.mesh_shape[self.mesh_axes.index(name)]
+
+    @property
+    def dp_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in self.mesh_axes if a in ("pod", "data"))
+
+    @property
+    def dp_size(self) -> int:
+        s = 1
+        for a in self.dp_axes:
+            s *= self.axis_size(a)
+        return s
+
+    @property
+    def tp_size(self) -> int:
+        return self.axis_size("model")
+
+    # ------------------------------------------------------------------
+    def resolve(self, logical: Optional[str], dim_size: Optional[int] = None):
+        """Map one logical axis name to a physical axis (or None)."""
+        if logical is None or logical == "null":
+            return None
+        if logical == "batch":
+            if not self.dp_axes:
+                return None
+            if dim_size is not None and dim_size % self.dp_size != 0:
+                return None  # e.g. global_batch=1 long-context decode
+            return self.dp_axes
+        if logical == "fsdp":
+            if not self.fsdp or not self.dp_axes:
+                return None
+            if dim_size is not None and dim_size % self.dp_size != 0:
+                return None  # indivisible → replicate rather than crash
+            return self.dp_axes
+        if logical in ("tp", "sp", "expert", "kv_seq", "moe_tp"):
+            if logical == "sp" and not self.sequence_parallel:
+                return None
+            if "model" not in self.mesh_axes:
+                return None
+            if dim_size is not None and dim_size % self.tp_size != 0:
+                return None
+            return "model"
+        raise ValueError(f"unknown logical axis {logical!r}")
+
+    def spec(self, logical_axes: Sequence[Optional[str]], shape: Optional[Sequence[int]] = None) -> PartitionSpec:
+        """A PartitionSpec from per-dimension logical names.
+
+        With ``shape``, a logical axis whose physical axis size does not
+        divide the dimension is dropped (replicated): Mixtral's 8 experts on
+        a 16-way model axis replicate the expert dim and shard in-expert."""
+        phys = []
+        for i, name in enumerate(logical_axes):
+            dim = None if shape is None else shape[i]
+            phys.append(self.resolve(name, dim))
+        # a mesh axis shards at most one dim: the first use wins
+        used: set[str] = set()
+        out = []
+        for p in phys:
+            axes = (p,) if isinstance(p, str) else tuple(p or ())
+            if any(a in used for a in axes):
+                out.append(None)
+                continue
+            used.update(axes)
+            out.append(p)
+        return PartitionSpec(*out)
+
+
+def rules_from_mesh(mesh, fsdp: bool = True, sequence_parallel: bool = True) -> ShardingRules:
+    """The rules of a ``torch.distributed.device_mesh.DeviceMesh`` with named dims."""
+    return ShardingRules(
+        mesh_axes=tuple(mesh.mesh_dim_names),
+        mesh_shape=tuple(mesh.shape),
+        fsdp=fsdp,
+        sequence_parallel=sequence_parallel,
+        mesh=mesh,
+    )
+
+
+def logical_spec(rules: Optional[ShardingRules], logical_axes, shape=None) -> PartitionSpec:
+    if rules is None:
+        return PartitionSpec()
+    return rules.spec(logical_axes, shape)
+
+
+def spec_placements(mesh, spec: PartitionSpec) -> list:
+    """One ``Shard(dim)`` or ``Replicate()`` per dim of ``mesh`` for ``spec``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for dim, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        idx = [names.index(a) for a in axes]
+        # DTensor splits a dim over several mesh dims in mesh-dim order
+        assert idx == sorted(idx), f"spec entry {entry!r} is not in the mesh's axis order {names}"
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
+
+
+def placements(mesh, rules: ShardingRules, logical_axes, shape) -> list:
+    """The placements of a tensor of ``shape`` with ``logical_axes`` on
+    ``mesh``: the JAX package's ``named_sharding`` on DTensor."""
+    return spec_placements(mesh, rules.spec(logical_axes, shape))
+
+
+def sharded_context(rules: Optional[ShardingRules]):
+    """Inside a sharded step (``rules`` given), plain tensors made there
+    (positions, masks, the schedule's scalars) count as replicated
+    DTensors; without rules, nothing changes."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    # implicit_replication() clears the flag on exit, so it is entered only
+    # by the outermost of nested sharded contexts
+    if rules is None or getattr(DTensor._op_dispatcher, "_allow_implicit_replication", False):
+        return contextlib.nullcontext()
+    return implicit_replication()
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def shard_constraint(x, rules: Optional[ShardingRules], logical_axes):
+    """Lay ``x`` out as ``logical_axes`` say: ``redistribute`` for a
+    DTensor, the identity for a plain tensor or without rules. As JAX's
+    constraint binds the cotangent too, the gradient leaves the site laid
+    out as ``x`` came in."""
+    if rules is None or not isinstance(x, torch.Tensor) or not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, placements(x.device_mesh, rules, logical_axes, tuple(x.shape)))
+
+
+def gather_sequence(x, rules: Optional[ShardingRules]):
+    """``x`` (B, S, ...) laid out with only its batch sharded: the input of
+    a projection. The sequence-parallel layout (``("batch", "sp", None)``,
+    between blocks) cannot enter ``x @ W`` on DTensor as it stands: the
+    matmul folds (B, S) into rows, a view that DTensor (PyTorch 2.11)
+    refuses across a sharded S."""
+    return shard_constraint(x, rules, ("batch",) + (None,) * (x.dim() - 1))
+
+
+def pin(x):
+    """``x`` unchanged; on a DTensor, its gradient is laid out as ``x``
+    before it flows on. Put after a view whose backward view DTensor can
+    split only from ``x``'s layout (a flattened weight's heads)."""
+    if not isinstance(x, torch.Tensor) or not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, x.placements)
+
+
+def replicate(x):
+    """``x`` replicated over its mesh where it is a DTensor, else ``x``: the
+    layout change around an op that DTensor has no sharding rule for."""
+    if not isinstance(x, torch.Tensor) or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def whole(x):
+    """The whole of ``x`` as a plain tensor on every rank (``x`` itself
+    where it is plain): for ops with no DTensor sharding rule."""
+    return replicate(x).to_local() if isinstance(x, torch.Tensor) and is_dtensor(x) else x
+
+
+def replicated_like(t: torch.Tensor, like):
+    """The plain whole tensor ``t`` as a DTensor replicated on ``like``'s
+    mesh where ``like`` is a DTensor, else ``t``."""
+    if not isinstance(like, torch.Tensor) or not is_dtensor(like):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, like.device_mesh, [Replicate()] * like.device_mesh.ndim, run_check=False)

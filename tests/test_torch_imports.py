@@ -20,7 +20,7 @@ def test_import_port_leaves_jax_out():
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 49, mods\n"
+        "assert len(mods) >= 54, mods\n"
         "assert {'repro_torch.core.router', 'repro_torch.core.autoscale', 'repro_torch.launch.fleet'} <= set(mods)\n"
         "last = {'repro_torch.configs.' + m for m in ('jamba_1_5_large_398b', 'llava_next_34b', 'musicgen_medium')}\n"
         "assert last <= set(mods), sorted(last - set(mods))\n"
@@ -33,6 +33,13 @@ def test_import_port_leaves_jax_out():
         "train = {'repro_torch.' + m for m in ('optim', 'optim.adamw', 'optim.compression', 'checkpoint',\n"
         "         'checkpoint.checkpoint', 'core.coordinator', 'launch.steps', 'launch.train', 'launch.elastic')}\n"
         "assert train <= set(mods), sorted(train - set(mods))\n"
+        "dist = {'repro_torch.' + m for m in ('parallel', 'parallel.sharding', 'parallel.flash_decode',\n"
+        "        'parallel.pipeline', 'launch.mesh')}\n"
+        "assert dist <= set(mods), sorted(dist - set(mods))\n"
+        "from repro_torch.parallel import Axes, ShardingRules, logical_spec, shard_constraint\n"
+        "from repro_torch.parallel.flash_decode import sharded_decode_attention\n"
+        "from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply\n"
+        "from repro_torch.launch.mesh import make_mesh, make_production_mesh, parse_mesh_arg\n"
         "from repro_torch.models.model import lm_loss\n"
         "from repro_torch.data.dataset import BlockDataset, batch_iterator\n"
         "from repro_torch.bridge import opt_state_from_jax\n"

@@ -1,0 +1,283 @@
+"""The port's distribution layer on gloo CPU process groups, against the
+JAX package and the port in one process.
+
+One spawn of 8 ranks (``tests/torch_parallel_worker.py``, a ``file://``
+rendezvous under ``tmp_path``, a wall-clock limit) runs every multi-rank
+check; the JAX references are computed here while it runs:
+
+* ``sharded_decode_attention`` on a (2, 4) mesh, B, S, H, KH, D = 4, 256, 8,
+  2, 64 (the inputs of ``tests/test_distributed.py``), both paths within
+  1e-5 of ``repro.kernels.ref.decode_attention_ref``; with a row that has
+  no valid key, exact zeros on the kernel path (K1's contract) and the
+  reference's uniform spread on the jnp path, and a row whose valid keys lie
+  in one shard; and the K1 wrapper on head-sharded DTensors;
+* ``pipeline_apply`` on a ("pod", "data") (4, 2) mesh within 1e-6 of the
+  sequential run (twin of ``tests/test_pipeline.py``);
+* the sharded train step of internlm2-1.8b cut to 2 layers, d_model 64,
+  vocab 64, fp32, on (2, 4): loss, grad norm and every param within 1e-4
+  of the port's one-process step and of the JAX package's one-device
+  ``make_train_step(cfg, run, None)`` on the same weights (twin of
+  ``tests/test_distributed.py::test_sharded_train_step_matches_single_device``);
+* the forward loss with rules of moonshot-v1-16b-a3b-smoke,
+  xlstm-1.3b-smoke and internlm2-1.8b-smoke with 6 q heads (padded to 8
+  by ``pad_attention_heads_to``) within 1e-4 of the loss without rules
+  (the MoE, mLSTM and sLSTM paths, K3's DTensor path, the padded heads).
+
+In one process: each sequence shard's K1 partials against the JAX
+package's ``decode_attention(..., return_partials=True, interpret=True)``,
+``bubble_fraction``, and the combine of shards against one call. The
+``gpu``-marked test runs K1 shard by shard against one K1 call on the card.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import torch_parallel_worker as W
+from repro_torch import bridge
+from repro_torch.kernels import ops
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import model as M
+from repro_torch.models.common import tree_leaves
+from repro_torch.optim import adamw
+from repro_torch.parallel.pipeline import bubble_fraction
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jax_get_config
+    from repro.configs.base import RunConfig as JaxRunConfig
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro.launch import steps as jsteps
+    from repro.models import model as JM
+    from repro.optim import adamw as jadamw
+except ImportError:  # the card's machine has no JAX: only the gpu test runs there
+    jax = None
+
+ROOT = Path(__file__).resolve().parents[1]
+SPAWN_LIMIT_S = 300
+
+
+def _needs_jax():
+    if jax is None:
+        pytest.skip("JAX is not installed: the reference side of this test is missing")
+
+
+def _jax_train_start():
+    """The JAX package's weights and AdamW state for the train-step cut, and
+    the same as the port's trees."""
+    cfg, _ = W.train_setup()
+    jcfg = jax_get_config("internlm2-1.8b").reduced(num_layers=2, d_model=64, vocab_size=64,
+                                                    param_dtype="float32", compute_dtype="float32")
+    jparams = JM.init_model(jax.random.PRNGKey(0), jcfg)
+    jopt = jadamw.init_opt_state(jparams)
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    port = {"params": bridge.params_from_jax(to_np(jparams), cfg), "opt": bridge.opt_state_from_jax(to_np(jopt), cfg)}
+    return jcfg, jparams, jopt, port
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Start the 8 ranks, compute the references while they run, and return
+    ``(rank 0's results, references)``."""
+    _needs_jax()
+    out = tmp_path_factory.mktemp("gloo")
+    jcfg, jparams, jopt, start = _jax_train_start()
+    torch.save(start, out / "train_in.pt")
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT / 'tests'}", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_parallel_worker.py"), str(out)],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ref = {}
+        for case in ("random", "edge"):
+            q, k, v, valid = W.decode_inputs(case)
+            ref[f"decode/{case}"] = np.asarray(jref.decode_attention_ref(q, k, v, valid))
+        # the one-device JAX step and the port's one-process step on the same weights
+        batch = W.train_batch()
+        jrun = JaxRunConfig(remat="none", attention_impl="chunked", attention_chunk=16, z_loss=0.0)
+        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+        jp, _, jm = jax.jit(jsteps.make_train_step(jcfg, jrun, None))(jparams, jopt, jbatch)
+        ref["jax_train"] = (bridge.params_from_jax(jax.tree.map(np.asarray, jp), W.train_setup()[0]),
+                            {k: float(v) for k, v in jm.items()})
+        cfg, run = W.train_setup()
+        p1, o1, m1 = make_train_step(cfg, run)(start["params"], start["opt"], batch)
+        ref["port_train"] = (p1, o1["mu"], {k: v.item() for k, v in m1.items()})
+        for arch in W.FWD_ARCHS:
+            fcfg, frun, fparams, tokens = W.fwd_setup(arch)
+            ref[f"forward/{arch}"] = W.fwd_loss(fcfg, frun, fparams, tokens).item()
+        _, err = proc.communicate(timeout=SPAWN_LIMIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err[-4000:]
+    return torch.load(out / "results.pt", weights_only=False), ref
+
+
+# --- multi-rank -------------------------------------------------------------------
+
+
+def test_mesh_on_gloo(ranks):
+    res, _ = ranks
+    assert res["mesh"] == (("data", "model"), (2, 4), ("data", "model"))
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_sharded_decode_matches_ref(ranks, use_kernel):
+    res, ref = ranks
+    out, placements = res[f"decode/random/{use_kernel}"]
+    assert placements == [0, "R"]  # batch over data, replicated over model
+    err = (out.numpy() - ref["decode/random"]).__abs__().max()
+    assert err < 1e-5, err
+
+
+def test_sharded_decode_empty_rows_follow_each_paths_contract(ranks):
+    """Row 0 has no valid key: zeros on the kernel path, the reference's
+    uniform spread on the jnp path. Row 3's valid keys lie in shard 0 only:
+    the three empty shards weigh nothing."""
+    res, ref = ranks
+    exp = ref["decode/edge"]
+    kern = res["decode/edge/True"][0].numpy()
+    jnp_path = res["decode/edge/False"][0].numpy()
+    assert np.all(kern[0] == 0.0)
+    assert np.abs(kern[1:] - exp[1:]).max() < 1e-5
+    assert np.abs(jnp_path - exp).max() < 1e-5
+    # the reference's row 0: each head the mean value of its kv head (G = 4)
+    v = W.decode_inputs("edge")[2]
+    assert np.abs(exp[0] - np.repeat(v[0].mean(axis=0), 4, axis=0)).max() < 1e-5
+
+
+@pytest.mark.parametrize("kh", [2, 8])
+def test_decode_wrapper_on_head_sharded_dtensors(ranks, kh):
+    """``ops.decode_attention`` on DTensors with q's 8 heads over the 4-way
+    model axis: 2 kv heads stay replicated and each rank reads the one its
+    q heads pair with; 8 kv heads split as q's do. Against the wrapper on
+    the whole tensors in one process."""
+    res, _ = ranks
+    out, placements, inputs = res[f"decode_wrapper/{kh}"]
+    assert placements == [0, 1]  # batch over data, heads over model
+    exp = ops.decode_attention(*inputs)
+    assert (out - exp).abs().max().item() < 1e-6
+
+
+def test_sharded_decode_rejects_an_uneven_split(ranks):
+    res, _ = ranks
+    assert "does not divide" in res["decode/indivisible"]
+
+
+def test_pipeline_matches_sequential(ranks):
+    res, _ = ranks
+    w, x = W.pipe_inputs()
+    seq = torch.from_numpy(x)
+    for s in range(w.shape[0]):
+        seq = torch.tanh(seq @ torch.from_numpy(w[s]))
+    err = (res["pipeline"] - seq).abs().max().item()
+    assert err < 1e-6, err
+
+
+def _max_err(a_tree, b_tree):
+    return max((a - b).abs().max().item() for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)))
+
+
+def test_sharded_train_step_matches_one_process_step(ranks):
+    res, ref = ranks
+    p1, mu1, m1 = ref["port_train"]
+    got = res["train"]
+    assert got["placements"] == [0, 1]  # wq (D, H, hd): fsdp over data, heads over model
+    assert abs(got["metrics"]["loss"] - m1["loss"]) < 1e-4
+    assert abs(got["metrics"]["grad_norm"] - m1["grad_norm"]) < 1e-4 * m1["grad_norm"]
+    assert _max_err(got["params"], p1) < 1e-4
+    assert _max_err(got["mu"], mu1) < 1e-4 * max(t.abs().max().item() for t in tree_leaves(mu1))
+
+
+def test_sharded_train_step_matches_jax(ranks):
+    res, ref = ranks
+    jp, jm = ref["jax_train"]
+    got = res["train"]
+    assert abs(got["metrics"]["loss"] - jm["loss"]) < 1e-4
+    assert abs(got["metrics"]["grad_norm"] - jm["grad_norm"]) < 1e-4 * jm["grad_norm"]
+    assert _max_err(got["params"], jp) < 1e-4
+
+
+@pytest.mark.parametrize("arch", list(W.FWD_ARCHS))
+def test_forward_with_rules_matches_without(ranks, arch):
+    res, ref = ranks
+    assert abs(res[f"forward/{arch}"] - ref[f"forward/{arch}"]) < 1e-4
+
+
+# --- one process ------------------------------------------------------------------
+
+
+def test_bubble_fraction():
+    assert bubble_fraction(1, 8) == 0.0
+    assert bubble_fraction(4, 4) == 3 / 7
+    assert bubble_fraction(2, 30) == 1 / 31
+    assert bubble_fraction(4, 32) < bubble_fraction(4, 4)
+
+
+@pytest.mark.parametrize("case", ["random", "edge"])
+def test_local_partials_match_jax_kernel(case):
+    """Each of 4 sequence shards' K1 partials (the plain version here)
+    against the JAX package's Pallas kernel in interpret mode on the same
+    shard; and the one-process combine of the shards against one call."""
+    _needs_jax()
+    q, k, v, valid = W.decode_inputs(case)
+    n = 4
+    step = k.shape[1] // n
+    outs, ms, ls = [], [], []
+    for i in range(n):
+        sl = slice(i * step, (i + 1) * step)
+        acc, m, l = ops.decode_attention(*(torch.from_numpy(a) for a in (q, k[:, sl], v[:, sl], valid[:, sl])),
+                                         return_partials=True)
+        jacc, jm, jl = (np.asarray(t) for t in jops.decode_attention(
+            q, k[:, sl], v[:, sl], valid[:, sl], return_partials=True, interpret=True))
+        live = jl > 0  # a row with no valid key: both give zero weight (l = 0, acc = 0)
+        np.testing.assert_allclose(l.numpy(), jl, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(acc.numpy(), jacc, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(m.numpy()[live], jm[live], rtol=1e-5, atol=1e-5)
+        assert np.all(acc.numpy()[~live] == 0.0)
+        outs.append(acc), ms.append(m), ls.append(l)
+    whole = ops.decode_attention(*(torch.from_numpy(a) for a in (q, k, v, valid)))
+    combined = ops.combine_decode_partials(outs, ms, ls)
+    assert (combined - whole).abs().max().item() < 1e-5
+
+
+# --- on the card ----------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_shard_by_shard_matches_one_call(cuda, dtype):
+    """Part (a) of chip_smoke.py's distribution phase at a small size: K1
+    with partials on each of 4 sequence shards, combined, against one K1
+    call over the whole cache; an all-invalid row and one valid in shard 0
+    only included."""
+    B, S, H, KH, D = 4, 2048, 16, 8, 128
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, KH, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, KH, D), generator=g, device=cuda).to(dtype)
+    valid = torch.rand((B, S), generator=g, device=cuda) > 0.2
+    valid[0] = False
+    valid[3, S // 4:] = False
+    whole = ops.decode_attention(q, k, v, valid).float()
+    step = S // 4
+    parts = [ops.decode_attention(q, k[:, i * step:(i + 1) * step], v[:, i * step:(i + 1) * step],
+                                  valid[:, i * step:(i + 1) * step], return_partials=True) for i in range(4)]
+    combined = ops.combine_decode_partials(*zip(*parts))
+    assert torch.all(combined[0] == 0) and torch.all(whole[0] == 0)
+    assert (combined - whole).abs().max().item() < (3e-2 if dtype == torch.bfloat16 else 1e-4)

@@ -1,0 +1,181 @@
+"""Ranks of the gloo CPU runs of ``tests/test_torch_parallel.py``.
+
+``python tests/torch_parallel_worker.py OUT_DIR`` starts 8 ranks with
+``torch.multiprocessing`` (a ``file://`` rendezvous in OUT_DIR, so that
+concurrent test workers never race for a port) and runs on them, in order:
+``sharded_decode_attention`` on a (2, 4) ("data", "model") mesh, both
+paths; the K1 wrapper on head-sharded DTensors; ``pipeline_apply`` on a (4, 2) ("pod", "data") mesh; one sharded
+``make_train_step`` of internlm2-1.8b cut to 2 layers (weights from
+OUT_DIR/train_in.pt); the forward loss with rules of moonshot-v1-16b-a3b-
+smoke, xlstm-1.3b-smoke and internlm2-1.8b-smoke with 6 q heads padded to
+8. Rank 0 writes every result to
+OUT_DIR/results.pt; the test compares them with the JAX package and with
+the port in one process. Imports no JAX.
+"""
+
+import os
+import sys
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+WORLD = 8
+DECODE_SHAPE = (4, 256, 8, 2, 64)  # B, S, H, KH, D, as tests/test_distributed.py
+PIPE_SHAPE = (4, 6, 2, 8)  # P, M, B, D, as tests/test_pipeline.py
+TRAIN_BATCH = (8, 32)
+# forward with rules: arch (":pad6" = 6 q heads over 2 kv heads, padded to 8
+# for the 4-way model axis): sequence length
+FWD_ARCHS = {"moonshot-v1-16b-a3b-smoke": 16, "xlstm-1.3b-smoke": 8, "internlm2-1.8b-smoke:pad6": 16}
+
+
+def decode_inputs(case: str):
+    """q, k, v, valid for a decode case, from a numpy seed. ``edge``: row 0
+    has no valid key, row 3 has valid keys in the first of 4 sequence shards
+    only."""
+    B, S, H, KH, D = DECODE_SHAPE
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KH, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KH, D)).astype(np.float32)
+    valid = rng.random((B, S)) > 0.2
+    if case == "edge":
+        valid[0] = False
+        valid[3, S // 4:] = False
+    return q, k, v, valid
+
+
+def pipe_inputs():
+    P, M, B, D = PIPE_SHAPE
+    rng = np.random.default_rng(0)
+    w = (rng.standard_normal((P, D, D)) * 0.3).astype(np.float32)
+    x = rng.standard_normal((M, B, D)).astype(np.float32)
+    return w, x
+
+
+def train_batch():
+    rng = np.random.default_rng(1)
+    shape = TRAIN_BATCH
+    return {"tokens": rng.integers(0, 64, shape), "labels": rng.integers(0, 64, shape),
+            "mask": np.ones(shape, np.float32)}
+
+
+def train_setup():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+
+    cfg = get_config("internlm2-1.8b").reduced(num_layers=2, d_model=64, vocab_size=64,
+                                               param_dtype="float32", compute_dtype="float32")
+    return cfg, RunConfig(remat="none", attention_impl="pallas", z_loss=0.0)
+
+
+def fwd_setup(arch: str):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model as M
+
+    name, _, pad = arch.partition(":")
+    heads = {"num_heads": 6, "num_kv_heads": 2} if pad else {}
+    cfg = get_config(name).reduced(param_dtype="float32", compute_dtype="float32", **heads)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (8, FWD_ARCHS[arch]))
+    run = RunConfig(remat="none", attention_impl="pallas", ssd_chunk=8, pad_attention_heads_to=4 if pad else 0)
+    return cfg, run, params, tokens
+
+
+def fwd_loss(cfg, run, params, tokens, rules=None):
+    """The forward's LM loss of ``tokens`` against themselves shifted."""
+    from repro_torch.launch.steps import _to_device
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import sharded_context
+
+    b = _to_device({"tokens": tokens}, "cpu", rules)
+    with sharded_context(rules):
+        logits, aux = M.forward(cfg, run, params, b["tokens"], rules=rules)
+        loss = M.lm_loss(cfg, run, logits[:, :-1], b["tokens"][:, 1:], None, aux)[0]
+    return loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+
+
+def _layout(placements) -> list:
+    """Each placement as the tensor dim it shards, or "R" (replicated)."""
+    return [p.dim if p.is_shard() else "R" for p in placements]
+
+
+def _full(tree):
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t, tree)
+
+
+def rank_main(rank: int, out: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{out}/rendezvous", rank=rank, world_size=WORLD,
+                            timeout=timedelta(seconds=120))
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh, parse_mesh_arg
+    from repro_torch.launch.steps import distribute_tree, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.flash_decode import sharded_decode_attention
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.parallel.sharding import rules_from_mesh
+
+    res = {}
+    mesh = make_mesh((2, 4), device="cpu")
+    res["mesh"] = (tuple(mesh.mesh_dim_names), tuple(mesh.shape),
+                   tuple(parse_mesh_arg("2x4", device="cpu").mesh_dim_names))
+    for case in ("random", "edge"):
+        q, k, v, valid = (torch.from_numpy(a) for a in decode_inputs(case))
+        for use_kernel in (True, False):
+            o = sharded_decode_attention(q, k, v, valid, mesh, use_kernel=use_kernel)
+            res[f"decode/{case}/{use_kernel}"] = (o.full_tensor(), _layout(o.placements))
+    try:
+        sharded_decode_attention(q, k[:, :255], v[:, :255], valid[:, :255], mesh)
+        res["decode/indivisible"] = "no error"
+    except ValueError as e:
+        res["decode/indivisible"] = str(e)
+
+    # the K1 wrapper on DTensors: q's heads over model, k and v replicated
+    # over it (2 kv heads, each rank slicing its own) or split with q's (8)
+    rules = rules_from_mesh(mesh)
+    q, k, v, valid = (torch.from_numpy(a) for a in decode_inputs("edge"))
+    for kh in (2, 8):
+        kk, vv = (t[:, :, :1].expand(-1, -1, kh, -1).contiguous() + torch.arange(kh)[:, None] * 0.1
+                  for t in (k, v))
+        args = [distribute_tree(t, rules.spec(axes, t.shape), mesh) for t, axes in (
+            (q, ("batch", "tp", None)), (kk, ("batch", None, "tp", None)), (vv, ("batch", None, "tp", None)),
+            (valid, ("batch", None)))]
+        o = ops.decode_attention(*args)
+        res[f"decode_wrapper/{kh}"] = (o.full_tensor(), _layout(o.placements), (q, kk, vv, valid))
+
+    pmesh = make_mesh((4, 2), ("pod", "data"), device="cpu")
+    w, x = (torch.from_numpy(a) for a in pipe_inputs())
+    res["pipeline"] = pipeline_apply(lambda wi, h: torch.tanh(h @ wi), w, x, pmesh, stage_axis="pod")
+
+    cfg, run = train_setup()
+    start = torch.load(Path(out) / "train_in.pt")
+    specs = M.model_specs(cfg, rules)
+    params = distribute_tree(start["params"], specs, mesh)
+    opt = distribute_tree(start["opt"], adamw.opt_state_specs(specs), mesh)
+    params, opt, metrics = make_train_step(cfg, run, rules)(params, opt, train_batch())
+    res["train"] = {"params": _full(params), "mu": _full(opt["mu"]),
+                    "metrics": {k: v.item() for k, v in metrics.items()},
+                    "placements": _layout(params["layers"][0]["attn"]["wq"].placements)}
+
+    for arch in FWD_ARCHS:
+        fcfg, frun, fparams, tokens = fwd_setup(arch)
+        dparams = distribute_tree(fparams, M.model_specs(fcfg, rules), mesh)
+        res[f"forward/{arch}"] = fwd_loss(fcfg, frun, dparams, tokens, rules).item()
+
+    if rank == 0:
+        torch.save(res, Path(out) / "results.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    mp.spawn(rank_main, args=(sys.argv[1],), nprocs=WORLD, join=True)
