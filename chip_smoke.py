@@ -163,12 +163,36 @@ toolkit: ``python3 chip_smoke.py``. It
    (losses to 1e-3, ms per step, peak), and at a 2-layer fp32 cut (params
    to 1e-4). NCCL places one rank per card, so the multi-rank behaviour is
    held on gloo CPU groups by ``tests/test_torch_parallel.py``;
-21. prints one ``{"kernels": [...]}`` line with times and bounds (and the
+21. (right after phase 20) the sharded serve steps and the dry-run: (a)
+   qwen3-1.7b at full width on the one-rank NCCL (1, 1) mesh, params placed
+   by ``model_specs``, the cache by ``cache_specs`` (its sequence over
+   ``model``): phase 6's 8 prompt lengths (128-1024) each prefilled alone
+   by ``make_prefill_step`` (max_len 2048), the caches stacked into one
+   batch-8 cache, 32 greedy ``make_serve_step`` steps, against the
+   unsharded ``prefill``/``decode_step`` on the same weights: the bf16
+   logits' largest gap (to ``LOGIT_TOL`` of the largest |logit|) and the
+   step where the streams part, identical streams and logits to 1e-4 on a
+   2-layer fp32 cut, 28 K2 launches a prefill through the wrappers'
+   DTensor path and 28 K1 launches a step through
+   ``sharded_decode_attention``, ms per decode step and peak GiB of both,
+   and K1 and K2 timed at the path's shapes; (b) the ``-smoke`` config of
+   every arch (d_model 256, fp32; the frontends after 16 seeded features):
+   a prefill and 4 decode steps sharded against unsharded, streams
+   identical and logits to 1e-4 of the largest; (c) ``python -m
+   repro_torch.launch.dryrun`` in a subprocess (its fake process group
+   apart from the NCCL one) for qwen3-1.7b, xlstm-1.3b and
+   moonshot-v1-16b-a3b at train_4k, prefill_32k and decode_32k on the
+   16 x 16 mesh: each record's t_compute, t_memory, t_collective (predicted
+   from the H100 nameplate peaks), dominant term and peak bytes per device,
+   and the seconds each cell took;
+22. prints one ``{"kernels": [...]}`` line with times and bounds (and the
    launches of each serve path and of training; for K1 and K2 the times at
    each head grouping, K2 and K3 also at the training shape, K3 at the
-   Mamba shape, and K1 sharded over 4 shards of decode_32k), the seconds
-   of each phase, the card line, and last ``{"ok": true, "device":
-   {...}}``. ``--out FILE`` also writes every measurement to FILE as JSON.
+   Mamba shape, K1 sharded over 4 shards of decode_32k, and the rows
+   "flash_decode sharded serve" and "flash_attention sharded prefill" of
+   phase 21 with their launches per step and per prefill), the seconds of
+   each phase, the card line, and last ``{"ok": true, "device": {...}}``.
+   ``--out FILE`` also writes every measurement to FILE as JSON.
 
 Any failed check raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits 1 at once.
@@ -2526,6 +2550,309 @@ def distribution_phase(card: str) -> dict:
     return out
 
 
+# The sharded serve steps. qwen3-1.7b at full width on the one-rank NCCL
+# (1, 1) mesh: the 8 prompt lengths of phase 6 (128-1024, SyntheticCorpus),
+# each prefilled alone by make_prefill_step into a cache of SERVE_MAX_LEN
+# laid out by cache_specs, the 8 caches stacked into one batch-8 cache (its
+# rows at different positions), then SERVE_STEPS greedy make_serve_step
+# steps; against the unsharded prefill and decode_step on the same weights,
+# in bf16 at full width and in fp32 on a SERVE_CUT_LAYERS-layer cut. Then
+# the -smoke config of every arch at d_model SMOKE_D_MODEL (heads of 64, as
+# phase 19 trains them) in fp32: SMOKE_SERVE = (batch, prompt, max_len,
+# decode steps), the frontends with SMOKE_PREFIX seeded features first.
+# Then the dry-run of DRYRUN_ARCHS x DRYRUN_SHAPES on the 16 x 16 mesh.
+SERVE_LENS, SERVE_MAX_LEN, SERVE_STEPS, SERVE_CUT_LAYERS = (128, 256, 384, 512, 640, 768, 896, 1024), 2048, 32, 2
+SERVE_CUT_TOL = 1e-4  # fp32 logits, sharded vs unsharded: the same kernels on one rank, summed in the same order
+SMOKE_SERVE, SMOKE_PREFIX, SMOKE_TOL = (4, 64, 128, 4), 16, 1e-4  # SMOKE_TOL: of the largest |logit|, fp32
+DRYRUN_ARCHS = ("qwen3-1.7b", "xlstm-1.3b", "moonshot-v1-16b-a3b")
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def stack_caches(caches: list) -> dict:
+    """Batch-1 caches as one cache of their rows (batch on dim 1, ``pos`` on
+    dim 0), each DTensor laid out again as the first cache's."""
+    def cat(ts, dim):
+        out = torch.cat(ts, dim=dim)
+        return out.redistribute(ts[0].device_mesh, ts[0].placements) if hasattr(ts[0], "placements") else out
+
+    return {key: {k: cat([c[key][k] for c in caches], 1) for k in t} if isinstance(t, dict)
+            else cat([c[key] for c in caches], 0 if key == "pos" else 1) for key, t in caches[0].items()}
+
+
+def sharded_serve_phase(card: str) -> dict:
+    """Phase 21 (right after phase 20, while the card holds nothing else;
+    destroys its process group and frees everything at its end): (a)
+    qwen3-1.7b's sharded prefill and decode steps at full width
+    (``launch/steps.py::make_prefill_step``/``make_serve_step`` with the
+    rules of a one-rank NCCL (1, 1) mesh: params placed by ``model_specs``,
+    the cache by ``cache_specs``, its sequence over ``model``) against the
+    unsharded ``prefill``/``decode_step``: 28 K2 launches a prefill through
+    the wrappers' DTensor path, 28 K1 launches a step through
+    ``sharded_decode_attention``; the logits' largest gap and the step where
+    the greedy streams part in bf16; identical streams and logits to 1e-4
+    on an fp32 cut; ms per step and peak; K1 and K2 timed at the path's
+    shapes; (b) the ``-smoke`` config of every arch, sharded against
+    unsharded; (c) ``python -m repro_torch.launch.dryrun`` in a subprocess
+    (a fake process group apart from the NCCL one) on DRYRUN_ARCHS x
+    DRYRUN_SHAPES at the 16 x 16 mesh."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.dataset import SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import distribute_tree, make_prefill_step, make_serve_step
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models.model import FRONTEND_FEATURE_DIM
+    from repro_torch.parallel.sharding import rules_from_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {}
+    cfg = get_config("qwen3-1.7b")
+    run = RunConfig(remat="none", attention_impl="pallas", decode_attention_impl="kernel")
+    corpus = SyntheticCorpus(cfg.vocab_size, max(SERVE_LENS), seed=0)
+    prompts = [corpus.grain_tokens(i, 1)[:, :n] for i, n in enumerate(SERVE_LENS)]
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh((1, 1))
+        rules = rules_from_mesh(mesh)
+        k2_local, k1_sharded = [], []
+        real_local, real_sharded = ops._on_local_heads, A.sharded_decode_attention
+
+        def spy_local(*a, **kw):
+            k2_local.append(1)
+            return real_local(*a, **kw)
+
+        def spy_sharded(*a, **kw):
+            k1_sharded.append(1)
+            return real_sharded(*a, **kw)
+
+        def serve(c, params, sharded: bool, prompt_list, steps: int, prefixes=None, max_len=SERVE_MAX_LEN) -> dict:
+            """Each prompt batch prefilled alone (after its prefix features
+            where given), the caches stacked, ``steps`` greedy decode steps:
+            the logits and tokens of every step, the launches (and the
+            DTensor-path calls) of each prefill and step and in all, ms per
+            step, the peak."""
+            r = rules if sharded else None
+            if sharded:
+                params = distribute_tree(params, M.model_specs(c, rules), mesh)
+            prefill, step = make_prefill_step(c, run, r, max_len), make_serve_step(c, run, r)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rec = {"prefill": [], "steps": [], "ms": [], "launches": dict.fromkeys(ops.LAUNCHES, 0)}
+
+            def tally():
+                for key, n in ops.LAUNCHES.items():
+                    rec["launches"][key] += n
+
+            logits, caches = [], []
+            with mock.patch.object(ops, "_on_local_heads", spy_local), \
+                    mock.patch.object(A, "sharded_decode_attention", spy_sharded):
+                for i, p in enumerate(prompt_list):
+                    ops.reset_launches()
+                    k2_local.clear()
+                    batch = {"tokens": p} if prefixes is None else {"tokens": p, "prefix_features": prefixes[i]}
+                    lg, cache = prefill(params, batch)
+                    logits.append(_full(lg).float())
+                    caches.append(cache)
+                    rec["prefill"].append((ops.LAUNCHES["flash_attention"], len(k2_local)))
+                    tally()
+                cache = stack_caches(caches) if len(caches) > 1 else caches[0]
+                del caches
+                out_logits = [torch.cat(logits)]
+                tokens = []
+                for _ in range(steps):
+                    tok = out_logits[-1].argmax(-1)
+                    tokens.append(tok)
+                    ops.reset_launches()
+                    k1_sharded.clear()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg, cache = step(params, cache, {"tokens": tok})
+                    torch.cuda.synchronize()
+                    rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                    out_logits.append(_full(lg).float())
+                    rec["steps"].append((ops.LAUNCHES["decode_attention"], len(k1_sharded)))
+                    tally()
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            rec["logits"], rec["tokens"] = out_logits, tokens
+            return rec
+
+        def compare(a, b) -> dict:
+            """The first step where the greedy streams part (None: never),
+            and the logits' largest gap up to it."""
+            part = next((i for i, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if not torch.equal(x, y)), None)
+            upto = len(a["logits"]) if part is None else part + 1
+            gap = max(float((x - y).abs().max()) for x, y in zip(a["logits"][:upto], b["logits"][:upto]))
+            top = max(float(x.abs().max()) for x in a["logits"][:upto])
+            return {"parts_at_step": part, "max_abs_gap": gap, "max_abs_logit": top}
+
+        # -- (a) qwen3-1.7b at full width, bf16 ------------------------------
+        L = cfg.num_layers
+        toks = [torch.as_tensor(p, device=dev) for p in prompts]
+        runs = {}
+        for name, sharded in (("unsharded", False), ("sharded", True)):
+            # the weights made in the call: held here too, they would sit in
+            # the sharded run's peak beside their placed copies
+            runs[name] = serve(cfg, M.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16),
+                               sharded, toks, SERVE_STEPS)
+            free_card()
+        sh, un = runs["sharded"], runs["unsharded"]
+        check(all(kk == (L, L) for kk in sh["prefill"]) and all(kk == (L, L) for kk in sh["steps"]),
+              f"sharded: 28 K2 a prefill and 28 K1 a step, each through the DTensor path: {sh['prefill']}, {sh['steps']}")
+        check(all(kk == (L, 0) for kk in un["prefill"]) and all(kk == (L, 0) for kk in un["steps"]),
+              f"unsharded: 28 K2 a prefill and 28 K1 a step: {un['prefill']}, {un['steps']}")
+        cmp = compare(sh, un)
+        limit = LOGIT_TOL * max(1.0, cmp["max_abs_logit"])
+        check(all(bool(torch.isfinite(x).all()) for x in sh["logits"]) and cmp["max_abs_gap"] <= limit,
+              f"qwen3-1.7b bf16 sharded vs unsharded logits: {cmp}, limit {limit}")
+        out["qwen3"] = {"compare": cmp, "limit": limit, "launches_per_prefill": sh["prefill"][0],
+                        "launches_per_step": sh["steps"][0],
+                        **{f"{n}_{k}": r[k] for n, r in runs.items() for k in ("ms", "peak_gib")}}
+        print(f"qwen3-1.7b sharded serve steps on a one-rank NCCL (1, 1) mesh, {len(toks)} prompts "
+              f"{SERVE_LENS[0]}-{SERVE_LENS[-1]} prefilled alone, {SERVE_STEPS} decode steps at batch 8: bf16 logits "
+              f"vs unsharded, largest gap {cmp['max_abs_gap']:.4e} (limit {limit:.4e}, largest |logit| "
+              f"{cmp['max_abs_logit']:.3f}), streams part at step {cmp['parts_at_step']}; K2 per prefill "
+              f"{sh['prefill'][0][0]} (DTensor path {sh['prefill'][0][1]}), K1 per step {sh['steps'][0][0]} "
+              f"(sharded_decode_attention {sh['steps'][0][1]})")
+        for name, r in runs.items():
+            print(f"qwen3-1.7b decode step {name}, batch 8: ms per step " + ", ".join(f"{x:.1f}" for x in r["ms"][:8])
+                  + f" ... median {float(np.median(r['ms'])):.2f} (first incl. warm-up); peak {r['peak_gib']:.2f} GiB "
+                  f"({card})")
+
+        # K1 and K2 at the sharded path's shapes: K1 over the batch-8 cache
+        # of the last step (its rows valid up to their positions), K2 at the
+        # longest prefill
+        H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+        gen = torch.Generator(device=dev).manual_seed(21)
+        q = torch.randn((8, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((8, SERVE_MAX_LEN, KH, D), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((8, SERVE_MAX_LEN, KH, D), generator=gen, device=dev).to(torch.bfloat16)
+        ends = torch.tensor([n + SERVE_STEPS for n in SERVE_LENS], device=dev)
+        valid_b = torch.arange(SERVE_MAX_LEN, device=dev)[None, :] < ends[:, None]
+        valid = valid_b.to(torch.int32)
+        scale = D**-0.5
+        got, exp = decode_attention_cuda(q, k, v, valid, scale=scale)[0], decode_attention_plain(q, k, v, valid,
+                                                                                                  scale=scale)[0]
+        k1_err = float((got - exp).abs().max())
+        check(k1_err < BF16_TOL and scaled_err(got, exp) <= ATTN_SCALED_TOL[torch.float32],
+              f"K1 at the sharded serve's shape vs plain: {k1_err}")
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, valid)) + 8 * H * D * 4
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, 4 * H * D * int(valid_b.sum()) / BF16_FLOPS * 1e3
+        mask = valid_b[:, None, None, :]
+        out["k1"] = {"max_abs_err": k1_err, "ms": graph_ms(lambda: decode_attention_cuda(q, k, v, valid, scale=scale)),
+                     "plain_ms": timed_ms(lambda: decode_attention_plain(q, k, v, valid, scale=scale)),
+                     "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                         q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True)),
+                     "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "launches": sum(n for n, _ in sh["steps"]), "per_step": L}
+        sq = max(SERVE_LENS)
+        q2 = torch.randn((1, sq, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        k2, v2 = (torch.randn((1, sq, KH, D), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        got, exp = flash_attention_cuda(q2, k2, v2, scale=scale), flash_attention_plain(q2, k2, v2, scale=scale)
+        k2_err = float((got.float() - exp.float()).abs().max())
+        check(k2_err < BF16_TOL and scaled_err(got, exp) <= ATTN_SCALED_TOL[torch.bfloat16],
+              f"K2 at the sharded prefill's shape vs plain: {k2_err}")
+        t_b = 2 * (2 * q2.numel() + k2.numel() + v2.numel()) / HBM_BYTES_PER_S * 1e3
+        t_o = 4 * H * D * window_pairs(sq, 0) / BF16_FLOPS * 1e3
+        out["k2"] = {"max_abs_err": k2_err, "ms": graph_ms(lambda: flash_attention_cuda(q2, k2, v2, scale=scale)),
+                     "plain_ms": timed_ms(lambda: flash_attention_plain(q2, k2, v2, scale=scale)),
+                     "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                         q2.transpose(1, 2), k2.transpose(1, 2), v2.transpose(1, 2), is_causal=True, enable_gqa=True)),
+                     "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "launches": sum(n for n, _ in sh["prefill"]), "per_prefill": L}
+        for name, r in (("K1 at the sharded serve's shape (q (8,16,128), k/v (8,2048,8,128))", out["k1"]),
+                        ("K2 at the sharded prefill's longest shape (q (1,1024,16,128))", out["k2"])):
+            print(f"{name}: {r['ms']:.5f} ms device, bound {r['bound_ms']:.5f} ms by {r['bound_by']}, plain "
+                  f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.5f} ms, max abs err {r['max_abs_err']:.3e} ({card})")
+        del q, k, v, valid, valid_b, q2, k2, v2, got, exp, runs, sh, un
+        free_card()
+
+        # the fp32 cut: identical streams, logits to SERVE_CUT_TOL
+        cut = dataclasses.replace(cfg, num_layers=SERVE_CUT_LAYERS, compute_dtype="float32")
+        cut_runs = {name: serve(cut, M.init_model(cut, torch.Generator(device=dev).manual_seed(0)), sharded, toks,
+                                SERVE_STEPS) for name, sharded in (("unsharded", False), ("sharded", True))}
+        ccmp = compare(cut_runs["sharded"], cut_runs["unsharded"])
+        check(ccmp["parts_at_step"] is None and ccmp["max_abs_gap"] < SERVE_CUT_TOL,
+              f"{SERVE_CUT_LAYERS}-layer fp32 cut, sharded vs unsharded: {ccmp}")
+        out["qwen3_cut_fp32"] = ccmp
+        print(f"qwen3-1.7b cut to {SERVE_CUT_LAYERS} layers, fp32, sharded vs unsharded serve steps: greedy streams "
+              f"identical over {SERVE_STEPS} steps, logits' largest gap {ccmp['max_abs_gap']:.3e} (tol {SERVE_CUT_TOL})")
+        del cut_runs
+        free_card()
+
+        # -- (b) every arch's -smoke config -----------------------------------
+        bs, plen, max_len, steps = SMOKE_SERVE
+        smoke = {}
+        rng = np.random.default_rng(21)
+        for arch in ARCH_IDS:
+            base = get_config(f"{arch}-smoke")
+            c = dataclasses.replace(base, d_model=SMOKE_D_MODEL, head_dim=max(SMOKE_D_MODEL // max(base.num_heads, 1), 8),
+                                    compute_dtype="float32")
+            kinds = {c.layer_kind(i) for i in range(c.num_layers)}
+            p = torch.as_tensor(rng.integers(0, c.vocab_size, (bs, plen)), device=dev)
+            prefix = (torch.as_tensor(rng.standard_normal((bs, SMOKE_PREFIX, FRONTEND_FEATURE_DIM[c.frontend])),
+                                      dtype=torch.float32, device=dev) if c.frontend else None)
+            pair = {name: serve(c, M.init_model(c, torch.Generator(device=dev).manual_seed(0)), sharded, [p], steps,
+                                None if prefix is None else [prefix], max_len)
+                    for name, sharded in (("unsharded", False), ("sharded", True))}
+            cmp = compare(pair["sharded"], pair["unsharded"])
+            tol = SMOKE_TOL * max(1.0, cmp["max_abs_logit"])
+            launched = pair["sharded"]["launches"]
+            check(cmp["parts_at_step"] is None and cmp["max_abs_gap"] <= tol
+                  and (launched["flash_attention"] > 0) == ("attn" in kinds)
+                  and (launched["decode_attention"] > 0) == ("attn" in kinds)
+                  and (launched["ssm_scan"] > 0) == bool(kinds & {"mlstm", "mamba"}),
+                  f"{arch}-smoke sharded vs unsharded serve steps: {cmp}, tol {tol}, launches {launched}")
+            smoke[arch] = {**cmp, "launches": launched}
+        out["smoke"] = smoke
+        print(f"the -smoke configs at d_model {SMOKE_D_MODEL}, fp32, prefill of {bs} x {plen} (frontends after "
+              f"{SMOKE_PREFIX} features) + {steps} decode steps, sharded vs unsharded: "
+              + "; ".join(f"{a} gap {r['max_abs_gap']:.2e}" for a, r in smoke.items()) + " (streams identical)")
+    finally:
+        dist.destroy_process_group()
+    free_card()
+
+    # -- (c) the dry-run, its fake process group in a process of its own ---------
+    out_dir = ROOT / "results" / "dryrun_torch"
+    t0 = time.perf_counter()
+    args = [a for arch in DRYRUN_ARCHS for a in ("--arch", arch)] + [a for sh in DRYRUN_SHAPES for a in ("--shape", sh)]
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", str(out_dir)],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), capture_output=True, text=True,
+                         timeout=900)
+    print(res.stdout, flush=True)
+    cells = {}
+    for arch in DRYRUN_ARCHS:
+        for sh in DRYRUN_SHAPES:
+            rec = json.loads((out_dir / f"{arch}__{sh}__singlepod.json").read_text())
+            check(rec["ok"], f"dry-run {arch} {sh}: {rec.get('error')} {rec.get('traceback', '')[-3000:]}")
+            cells[f"{arch}:{sh}"] = {k: rec[k] for k in ("t_compute", "t_memory", "t_memory_analytic", "t_collective",
+                                                         "dominant", "peak_bytes_per_dev", "hlo_flops_per_dev",
+                                                         "model_flops_per_dev", "useful_flop_ratio",
+                                                         "collective_bytes_per_dev", "total_s")}
+            print(f"dry-run {arch} {sh} on 16 x 16 (predicted from the H100 nameplate peaks, not measured): "
+                  f"t_compute {rec['t_compute']:.4e} s, t_memory {rec['t_memory']:.4e} s (analytic "
+                  f"{rec['t_memory_analytic']:.4e}), t_collective {rec['t_collective']:.4e} s, dominant "
+                  f"{rec['dominant']}, peak {rec['peak_bytes_per_dev'] / 2**30:.2f} GiB per device; counted in "
+                  f"{rec['total_s']:.1f} s")
+    check(res.returncode == 0, f"dry-run exited {res.returncode}: {res.stderr[-2000:]}")
+    out["dryrun"] = {"cells": cells, "wall_s": time.perf_counter() - t0}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write every measurement as JSON to this file")
@@ -2781,6 +3108,8 @@ def main(argv=None) -> int:
     lap("19. MoE, frontend and remat training")
     record["distribution"] = distribution_phase(card)
     lap("20. distribution")
+    record["serve_steps"] = sharded_serve_phase(card)
+    lap("21. sharded serve steps and dry-run")
 
     # -- 6. serve qwen3-1.7b at full width ---------------------------------
     cfg = get_config("qwen3-1.7b")
@@ -3184,6 +3513,23 @@ def main(argv=None) -> int:
         "timing": "CUDA graph of 20 x (4 shard calls + combine), replayed 5 times",
     })
     check(kernels[-1]["launches"] > 0, "the sharded decode launched K1")
+    # K1 and K2 on the sharded serve path of phase 21 (qwen3-1.7b on the
+    # one-rank mesh): K1 through sharded_decode_attention in every decode
+    # step, K2 through the wrappers' DTensor path in every prefill
+    ss = record["serve_steps"]
+    for name, key, source, replaces, per in (
+            ("flash_decode sharded serve", "k1", "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:31", f"{ss['k1']['per_step']} per decode step (qwen3-1.7b, "
+             "through sharded_decode_attention)"),
+            ("flash_attention sharded prefill", "k2", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:28", f"{ss['k2']['per_prefill']} per prefill (qwen3-1.7b, "
+             "through the DTensor path)")):
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": ss[key]["launches"], "launches_per_step": per,
+                        **{k: ss[key][k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "bound_by")},
+                        "timing": "CUDA graph of 20 calls, replayed 5 times"})
+        check(kernels[-1]["launches"] > 0, f"{name} launched")
     record["kernels"] = kernels
     # K3 takes each fp32 product as two TF32 products on the bf16 path: its
     # operations at the TF32 peak (a floor for this design, not a time)

@@ -27,14 +27,25 @@ heads are split over a mesh dim that k's and v's do not divide
 (``KH % tp != 0``), k and v are replicated over it and each rank slices
 the kv heads its q heads read; their gradients then sum over that mesh
 dim (``Partial``).
+
+Each kernel is also a ``torch.library.custom_op`` (``repro_torch::
+decode_attention``, ``flash_attention``, ``ssm_scan``): the op runs the
+CPU/CUDA choice above, its ``register_fake`` gives the output shapes, and
+``torch.utils.flop_counter`` holds a FLOP formula for the work the kernel
+does. A fake tensor (``FakeTensorMode``) or a ``meta`` tensor that reaches
+a wrapper therefore launches nothing and runs no plain version: the op's
+fake gives its outputs, and the dry-run (``launch/dryrun.py``) counts the
+kernels' FLOPs from the formulas.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
 from repro_torch.kernels.flash_attention import (
@@ -43,6 +54,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref_vjp,
 )
 from repro_torch.kernels.ssm_scan import fold, ssm_scan_cuda, ssm_scan_plain, ssm_scan_ref_vjp, unfold
+from repro_torch.parallel.sharding import from_local, shard_index
 
 LAUNCHES = {"decode_attention": 0, "flash_attention": 0, "ssm_scan": 0}
 
@@ -50,6 +62,102 @@ LAUNCHES = {"decode_attention": 0, "flash_attention": 0, "ssm_scan": 0}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# The kernels as custom ops: the device choice, the fake, the FLOP formula
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, Tensor valid, float scale, bool normalize) "
+                                "-> (Tensor, Tensor, Tensor)")
+def _decode_op(q, k, v, valid, scale, normalize):
+    """K1: fp32 ``(out, m, l)``, the plain version on the CPU, else the kernel."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, valid, scale=scale, normalize=normalize)
+    if valid.dtype == torch.bool:
+        valid = valid.to(torch.int32)
+    res = decode_attention_cuda(q, k, v, valid, scale=scale, normalize=normalize)
+    LAUNCHES["decode_attention"] += 1
+    return res
+
+
+@_decode_op.register_fake
+def _(q, k, v, valid, scale, normalize):
+    b, h, d = q.shape
+    return (q.new_empty((b, h, d), dtype=torch.float32), q.new_empty((b, h), dtype=torch.float32),
+            q.new_empty((b, h), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _decode_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """Scores and weighted values over every key of the cache: the kernel
+    reads each key and masks the invalid ones (4·D per q head and key)."""
+    b, h, d = q_shape
+    return 4 * b * h * k_shape[1] * d
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, int q_offset, int window, float scale) -> Tensor")
+def _flash_op(q, k, v, q_offset, window, scale):
+    """K2's forward in q's dtype, the plain version on the CPU, else the kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, q_offset=q_offset, window=window, scale=scale)
+    out = flash_attention_cuda(q, k, v, q_offset=q_offset, window=window, scale=scale)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+@_flash_op.register_fake
+def _(q, k, v, q_offset, window, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def attended_pairs(sq: int, sk: int, q_offset: int = 0, window: int = 0) -> int:
+    """The (query, key) pairs a causal row set attends to: query ``i`` at
+    position ``i + q_offset`` sees keys ``max(0, p - window + 1) .. min(p,
+    sk - 1)``."""
+    p = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(p, sk - 1)
+    lo = np.maximum(0, p - window + 1) if window else np.zeros_like(p)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, q_offset, window, *args, out_shape=None, **kwargs) -> int:
+    """Scores and weighted values over the pairs the mask keeps (4·D per
+    q head and pair; the kernel skips the tiles the mask empties)."""
+    b, sq, h, d = q_shape
+    return 4 * b * h * d * attended_pairs(sq, k_shape[1], q_offset, window)
+
+
+@torch.library.custom_op("repro_torch::ssm_scan", mutates_args=(),
+                         schema="(Tensor x, Tensor loga, Tensor b, Tensor c, int chunk) -> (Tensor, Tensor)")
+def _scan_op(x, loga, b, c, chunk):
+    """K3 on the folded layout: ``(y, final h)``, the plain version on the
+    CPU, else the kernel."""
+    if x.device.type == "cpu":
+        return ssm_scan_plain(x, loga, b, c, chunk)
+    res = ssm_scan_cuda(x, loga, b, c, chunk)
+    LAUNCHES["ssm_scan"] += 1
+    return res
+
+
+@_scan_op.register_fake
+def _(x, loga, b, c, chunk):
+    bh, s, p = x.shape
+    return torch.empty_like(x), x.new_empty((bh, b.shape[-1], p), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan)
+def _scan_flops(x_shape, loga_shape, b_shape, c_shape, chunk, *args, out_shape=None, **kwargs) -> int:
+    """Per chunk of L steps: C Bᵀ (2·L²·N), its decay-masked product with
+    X (2·L²·P), the carried state's read (2·L·N·P) and update (2·L·N·P)."""
+    bh, s, p = x_shape
+    n = b_shape[-1]
+    L = min(chunk, s)
+    return bh * s * (2 * L * (n + p) + 4 * n * p)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -60,11 +168,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset: int, window: int, scale: float):
-        if q.device.type == "cpu":
-            out = flash_attention_plain(q, k, v, q_offset=q_offset, window=window, scale=scale)
-        else:
-            out = flash_attention_cuda(q, k, v, q_offset=q_offset, window=window, scale=scale)
-            LAUNCHES["flash_attention"] += 1
+        out = _flash_op(q, k, v, q_offset, window, scale)
         ctx.save_for_backward(q, k, v)
         ctx.args = (q_offset, window, scale)
         return out
@@ -74,7 +178,10 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         q_offset, window, scale = ctx.args
         dq, dk, dv = flash_attention_ref_vjp(q, k, v, g, q_offset=q_offset, window=window, scale=scale)
-        return dq, dk, dv, None, None, None
+        # contiguous, as the inputs were: on DTensors the gradient goes on
+        # through views of the projections, which a transposed local
+        # gradient cannot take
+        return dq.contiguous(), dk.contiguous(), dv.contiguous(), None, None, None
 
 
 def flash_attention(
@@ -115,14 +222,7 @@ def decode_attention(
 
         out, m, l = _on_local_heads(local, q, (k, v), q_head_dim=1, batch_only=(valid,))
         return (out, m, l) if return_partials else (out / l.clamp_min(1e-30)[..., None]).to(q.dtype)
-    normalize = not return_partials
-    if q.device.type == "cpu":
-        out, m, l = decode_attention_plain(q, k, v, valid, scale=scale, normalize=normalize)
-    else:
-        if valid.dtype == torch.bool:
-            valid = valid.to(torch.int32)
-        out, m, l = decode_attention_cuda(q, k, v, valid, scale=scale, normalize=normalize)
-        LAUNCHES["decode_attention"] += 1
+    out, m, l = _decode_op(q, k, v, valid, scale, not return_partials)
     if return_partials:
         return out, m, l
     return out.to(q.dtype)
@@ -153,11 +253,7 @@ class _SsmScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, loga, b, c, chunk: int):
-        if x.device.type == "cpu":
-            y, h = ssm_scan_plain(x, loga, b, c, chunk)
-        else:
-            y, h = ssm_scan_cuda(x, loga, b, c, chunk)
-            LAUNCHES["ssm_scan"] += 1
+        y, h = _scan_op(x, loga, b, c, chunk)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, loga, b, c)
         ctx.chunk = chunk
@@ -199,17 +295,6 @@ def _to(x: DTensor, placements) -> DTensor:
     return x if tuple(x.placements) == tuple(placements) else x.redistribute(x.device_mesh, placements)
 
 
-def _shard_index(mesh, placements, dim: int) -> tuple[int, int]:
-    """(this rank's shard index along tensor dim ``dim``, number of
-    shards): the mesh dims that split it, in mesh-dim order."""
-    coord = mesh.get_coordinate()
-    idx, n = 0, 1
-    for i, pl in enumerate(placements):
-        if isinstance(pl, Shard) and pl.dim == dim:
-            idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
-    return idx, n
-
-
 def _on_local_heads(fn, q: DTensor, kv, q_head_dim: int, batch_only=()):
     """``fn(q_local, *kv_local, *batch_only_local)`` for attention on
     DTensors; q ``(B, ..., H, D)`` with its heads on ``q_head_dim``, each
@@ -219,7 +304,7 @@ def _on_local_heads(fn, q: DTensor, kv, q_head_dim: int, batch_only=()):
     mesh = q.device_mesh
     qpl = _keep(q.placements, (0, q_head_dim))
     h, kh = q.shape[q_head_dim], kv[0].shape[2]
-    _, n = _shard_index(mesh, qpl, q_head_dim)
+    _, n = shard_index(mesh, qpl, q_head_dim)
     if h % n:  # unevenly split heads: run them whole
         qpl = _keep(qpl, (0,))
         n = 1
@@ -231,7 +316,7 @@ def _on_local_heads(fn, q: DTensor, kv, q_head_dim: int, batch_only=()):
     if n > 1 and not kv_split:
         # each rank reads the kv heads of its own q heads; the gradients of
         # the replicated k and v sum over the mesh dims that split q's heads
-        idx, _ = _shard_index(mesh, qpl, q_head_dim)
+        idx, _ = shard_index(mesh, qpl, q_head_dim)
         g, hl = h // kh, h // n
         if hl % g and g % hl:
             raise ValueError(f"DTensor attention: {hl} local q heads of {h} do not pair with {kh} kv heads")
@@ -249,17 +334,8 @@ def _on_local_heads(fn, q: DTensor, kv, q_head_dim: int, batch_only=()):
         opl = [pl if not (isinstance(pl, Shard) and pl.dim >= o.dim()) else Replicate() for pl in qpl]
         shape = tuple(q.shape[:q_head_dim + 1]) + tuple(o.shape[q_head_dim + 1:])
         # contiguous, as its global stride says: DTensor views the local shard
-        res.append(DTensor.from_local(o.contiguous(), mesh, opl, run_check=False, shape=torch.Size(shape),
-                                      stride=_contiguous_stride(shape)))
+        res.append(from_local(o.contiguous(), mesh, opl, shape))
     return res
-
-
-def _contiguous_stride(shape) -> tuple:
-    stride, acc = [], 1
-    for s in reversed(shape):
-        stride.append(acc)
-        acc *= s
-    return tuple(reversed(stride))
 
 
 def _ssm_scan_local(x: DTensor, loga, b, c, chunk: int):
@@ -267,7 +343,7 @@ def _ssm_scan_local(x: DTensor, loga, b, c, chunk: int):
     their sharding, the scan runs on each rank's local rows and heads."""
     mesh = x.device_mesh
     pl = _keep(x.placements, (0, 2))
-    _, n = _shard_index(mesh, pl, 2)
+    _, n = shard_index(mesh, pl, 2)
     if x.shape[2] % n:
         pl = _keep(pl, (0,))
     locs = [_to(t, pl).to_local() for t in (x, loga, b, c)]
@@ -275,6 +351,4 @@ def _ssm_scan_local(x: DTensor, loga, b, c, chunk: int):
     hpl = [Shard(1) if p == Shard(2) else p for p in pl]  # h (B, H, N, P)
     B, S, H, P = x.shape
     hshape = (B, H, b.shape[-1], P)
-    y = DTensor.from_local(y.contiguous(), mesh, pl, run_check=False, shape=x.shape, stride=_contiguous_stride(x.shape))
-    h = DTensor.from_local(h, mesh, hpl, run_check=False, shape=torch.Size(hshape), stride=_contiguous_stride(hshape))
-    return y, h
+    return from_local(y.contiguous(), mesh, pl, x.shape), from_local(h, mesh, hpl, hshape)

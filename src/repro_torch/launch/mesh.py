@@ -5,7 +5,9 @@ with ``init_device_mesh`` over the ranks of the default process group
 (``torch.distributed.init_process_group`` comes first; it needs the
 address, world size and rank from the caller). The device is ``"cuda"``
 unless the caller asks for ``"cpu"`` (the gloo tests): without a card a
-CUDA mesh raises, never turns into a CPU one. The JAX package's
+CUDA mesh raises, never turns into a CPU one, except over a fake process
+group (``launch/dryrun.py``), whose CUDA devices hold fake tensors only
+and need no card. The JAX package's
 ``TPU_PERF_FLAGS`` are XLA flags for a TPU and stay there.
 """
 
@@ -26,9 +28,15 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...] | None = None, devic
         axes = DEFAULT_AXES[len(shape)]
     if len(axes) != len(shape):
         raise ValueError(f"make_mesh: {len(shape)} dims {shape} but axes {axes}")
-    if device == "cuda" and not torch.cuda.is_available():
+    if device == "cuda" and not torch.cuda.is_available() and _backend() != "fake":
         raise RuntimeError("make_mesh: no CUDA device; pass device='cpu' for a CPU (gloo) mesh")
     return init_device_mesh(device, shape, mesh_dim_names=tuple(axes))
+
+
+def _backend() -> str | None:
+    import torch.distributed as dist
+
+    return dist.get_backend() if dist.is_initialized() else None
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):

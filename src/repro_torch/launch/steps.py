@@ -1,7 +1,7 @@
-"""Training step functions shared by the trainer and the coordinator.
+"""Step functions shared by the trainer, the coordinator and the dry-run.
 
-Port of the training half of ``repro/launch/steps.py``. PyTorch runs
-eagerly, so each ``make_*`` function returns the step itself:
+Port of ``repro/launch/steps.py``. PyTorch runs eagerly, so each
+``make_*`` function returns the step itself:
 ``make_grad_step`` gives ``(params, batch) → (grads, metrics)`` for the
 het-DP coordinator, and ``make_train_step`` gives ``(params, opt_state,
 batch) → (params, opt_state, metrics)`` with ``run.grad_accum_steps``
@@ -14,9 +14,15 @@ With ``rules`` (``parallel/sharding.py``) the steps are sharded: params
 and optimizer state are DTensors placed by ``model_specs`` and
 ``opt_state_specs`` (:func:`distribute_tree`), the batch is placed along
 its ``batch`` axis, each gradient is laid out as its parameter, and the
-update runs shard by shard. The serve and prefill steps with rules wait
-for a later slice; the dry-run's ``cell_artifacts``, ``batch_shardings``
-and ``cache_shapes`` for ROADMAP A9d.
+update runs shard by shard. ``make_prefill_step`` and ``make_serve_step``
+are the serve side: ``models/model.py::prefill`` and ``decode_step`` with
+the same ``rules`` (the cache a DTensor tree laid out by ``cache_specs``).
+
+``cell_artifacts`` gives what the dry-run (``launch/dryrun.py``) needs for
+one (arch × shape × mesh) cell: the step, its stand-in arguments
+(``meta`` tensors: ``model_shapes``, ``opt_state_shapes``,
+``configs.input_specs``, :func:`cache_shapes`), the PartitionSpec tree of
+each argument, and the donated arguments, as the reference returns them.
 """
 
 from __future__ import annotations
@@ -25,11 +31,18 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs import input_shardings, input_specs
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import model as M
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import adamw
-from repro_torch.parallel.sharding import ShardingRules, is_dtensor, sharded_context, spec_placements
+from repro_torch.parallel.sharding import (
+    ShardingRules,
+    is_dtensor,
+    rules_from_mesh,
+    sharded_context,
+    spec_placements,
+)
 
 _LONG = ("tokens", "labels")  # index tensors: embedding rows, gathered logits
 
@@ -44,6 +57,11 @@ def distribute_tree(tree, spec_tree, mesh):
 
 
 def _to_device(batch: dict, device, rules: Optional[ShardingRules] = None) -> dict:
+    """The batch's arrays as tensors on ``device`` (index tensors int64),
+    placed along their ``batch`` axis with ``rules``. A DTensor input is
+    already placed and passes as it is."""
+    if any(is_dtensor(x) for x in batch.values()):
+        return dict(batch)
     out = {key: torch.as_tensor(x, device=device) for key, x in batch.items()}
     out = {key: t.long() if key in _LONG else t for key, t in out.items()}
     if rules is None:
@@ -119,3 +137,72 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, rules: Optional[ShardingRu
         return params, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serve (prefill + decode)
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_step(cfg: ModelConfig, run: RunConfig, rules: Optional[ShardingRules], max_len: int):
+    """(params, batch) → (last-position logits, cache): ``models/model.py::
+    prefill`` with ``rules``; the batch holds ``tokens`` (and a frontend's
+    ``prefix_features``), numpy arrays or tensors placed as
+    :func:`batch_shardings` says."""
+
+    def prefill_step(params, batch):
+        b = _to_device(batch, tree_leaves(params)[0].device, rules)
+        return M.prefill(cfg, run, params, b["tokens"], max_len, b.get("prefix_features"), rules=rules)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, run: RunConfig, rules: Optional[ShardingRules]):
+    """(params, cache, batch) → (logits, cache): one-token decode with the
+    KV/state cache (``models/model.py::decode_step`` with ``rules``), the
+    reference's serve_step. The cache is updated in place."""
+
+    def serve_step(params, cache, batch):
+        b = _to_device(batch, tree_leaves(params)[0].device, rules)
+        return M.decode_step(cfg, run, params, cache, b["tokens"], rules=rules)
+
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Shardings / shapes for a workload cell
+# ---------------------------------------------------------------------------
+
+
+def batch_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh, rules: ShardingRules) -> dict:
+    """The placements on ``mesh`` of each input of ``configs.input_specs``
+    (batch over the DP axes)."""
+    return {k: spec_placements(mesh, spec) for k, spec in input_shardings(cfg, shape, rules).items()}
+
+
+def cache_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """``meta`` stand-ins of the decode cache (allocation-free)."""
+    return M.init_cache(cfg, shape.global_batch, shape.seq_len, "meta")
+
+
+def cell_artifacts(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig, mesh) -> dict:
+    """Everything needed to run one (arch × shape × mesh) cell: ``fn``, its
+    stand-in ``args`` (``meta`` tensors), ``in_shardings`` (the
+    PartitionSpec tree of each argument, ``named_tree``'s input: place
+    with :func:`distribute_tree` or ``parallel/sharding.py::placed_full``),
+    ``donate_argnums`` and the ``rules``."""
+    rules = rules_from_mesh(mesh, fsdp=run.fsdp, sequence_parallel=run.sequence_parallel)
+    pspecs = M.model_specs(cfg, rules)
+    pshapes = M.model_shapes(cfg)
+    batch = input_specs(cfg, shape)
+    bspecs = input_shardings(cfg, shape, rules)
+    if shape.kind == "train":
+        oshapes = adamw.opt_state_shapes(pshapes, getattr(torch, run.optimizer_dtype))
+        return dict(fn=make_train_step(cfg, run, rules), args=(pshapes, oshapes, batch),
+                    in_shardings=(pspecs, adamw.opt_state_specs(pspecs), bspecs), donate_argnums=(0, 1), rules=rules)
+    if shape.kind == "prefill":
+        return dict(fn=make_prefill_step(cfg, run, rules, max_len=shape.seq_len), args=(pshapes, batch),
+                    in_shardings=(pspecs, bspecs), donate_argnums=(), rules=rules)
+    cspecs = M.cache_specs(cfg, rules, shape.global_batch, shape.seq_len)
+    return dict(fn=make_serve_step(cfg, run, rules), args=(pshapes, cache_shapes(cfg, shape), batch),
+                in_shardings=(pspecs, cspecs, bspecs), donate_argnums=(1,), rules=rules)

@@ -20,7 +20,12 @@ name its Pallas interpreter and are not accepted here.
 With ``rules`` (``parallel/sharding.py``) the training path lays q, k, v
 and the attention output out by heads over ``model`` where the head count
 divides it, at the JAX package's ``shard_constraint`` sites; on plain
-tensors, or without rules, those are the identity. ``pad_attention_heads_to``
+tensors, or without rules, those are the identity. The decode step with
+rules takes a DTensor cache laid out by ``attn_cache_axes`` (its sequence
+over ``model``) and writes each rank's own shard; K1 then runs over the
+shards through ``parallel/flash_decode.py`` (the sequence sharded) or
+through the wrapper's DTensor path (the sequence whole).
+``pad_attention_heads_to``
 pads the head count with zero heads (function-preserving) so that it
 divides the mesh axis; it only helps sharding, so the port pads with
 rules only.
@@ -32,13 +37,25 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamDef, apply_rope, causal_mask, norm_def, nrm, rms_norm
-from repro_torch.parallel.sharding import ShardingRules, gather_sequence, pin, shard_constraint
+from repro_torch.parallel.flash_decode import sharded_decode_attention
+from repro_torch.parallel.sharding import (
+    ShardingRules,
+    from_local,
+    gather_sequence,
+    is_dtensor,
+    local_range,
+    pin,
+    shard_constraint,
+    whole,
+)
 
 NEG_INF = -1e30
+_REPLICATE = Replicate()
 
 
 def attn_defs(cfg: ModelConfig) -> dict:
@@ -232,13 +249,6 @@ def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
     return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
 
 
-def attn_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
-    cap = cache_capacity(cfg, max_len)
-    shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
-
-
 def attn_cache_axes() -> dict:
     """Logical axes of one layer's ``k`` and ``v`` (B, cap, KH, hd): the
     cache sequence shards over ``model`` (sequence-sharded flash-decode,
@@ -249,10 +259,38 @@ def attn_cache_axes() -> dict:
     }
 
 
+def _ring_positions(s: int, cap: int, start: int, length: int):
+    """For cache slots ``start .. start + length`` after a prefill of ``s``
+    positions into a ring of ``cap``: the position each slot holds (the
+    latest ``p < s`` with ``p % cap == slot``), or None where ``s < cap``."""
+    if s < cap:
+        return None
+    slots = torch.arange(start, start + length)
+    return (s - cap) + (slots - (s - cap)) % cap
+
+
 def attn_fill_cache(cfg: ModelConfig, cache: dict, k, v) -> dict:
-    """Write prefill K/V (B, S, KH, D) into a fresh cache, in place (ring-aware)."""
+    """Write prefill K/V (B, S, KH, D) into a fresh cache, in place (ring-aware).
+
+    A DTensor cache (laid out by ``attn_cache_axes``) is written shard by
+    shard: each rank gathers the heads of its batch rows and copies the
+    positions its sequence shard holds."""
     cap = cache["k"].shape[1]
     s = k.shape[1]
+    if is_dtensor(cache["k"]):
+        for name, t in (("k", k), ("v", v)):
+            dst = cache[name]
+            mesh, pls = dst.device_mesh, dst.placements
+            rows = t.redistribute(mesh, [pl if pl.is_shard(0) else _REPLICATE for pl in pls]).to_local()
+            start, length = local_range(cap, mesh, pls, 1)
+            local = dst.to_local()
+            ring = _ring_positions(s, cap, start, length)
+            if ring is not None:
+                local.copy_(rows[:, ring.to(rows.device)])
+            elif start < s:
+                n = min(s, start + length) - start
+                local[:, :n].copy_(rows[:, start:start + n])
+        return cache
     if s >= cap:  # keep the trailing window, ring-ordered
         # position p lands in slot p % cap
         slots = torch.arange(s - cap, s, device=k.device) % cap
@@ -265,6 +303,45 @@ def attn_fill_cache(cfg: ModelConfig, cache: dict, k, v) -> dict:
     return cache
 
 
+def _write_sharded(dst, new, slot, active) -> None:
+    """The decode step's write into a DTensor cache ``dst`` (B, cap, KH, D)
+    laid out by ``attn_cache_axes``: each rank writes, on its own batch
+    rows, only where its sequence shard holds the row's slot (and the row
+    is active); elsewhere it writes the slot's old value back, as the
+    reference's elementwise select keeps every shard local. ``new`` (B, KH,
+    D) with its heads whole; ``slot`` and ``active`` whole plain tensors."""
+    mesh, pls = dst.device_mesh, dst.placements
+    b0, nb = local_range(dst.shape[0], mesh, pls, 0)
+    s0, ns = local_range(dst.shape[1], mesh, pls, 1)
+    new = new.redistribute(mesh, [pl if pl.is_shard(0) else _REPLICATE for pl in pls]).to_local()
+    local = dst.to_local()
+    at = slot[b0:b0 + nb] - s0
+    own = (at >= 0) & (at < ns)
+    if active is not None:
+        own &= active[b0:b0 + nb]
+    at = at.clamp(0, ns - 1)
+    rows = torch.arange(nb, device=local.device)
+    local[rows, at] = torch.where(own[:, None, None], new.to(local.dtype), local[rows, at])
+
+
+def _valid_sharded(cfg: ModelConfig, like, slot, pos, active):
+    """The (B, cap) valid mask of :func:`attn_apply_step` as a DTensor laid
+    out as the cache ``like``'s batch and sequence: each rank builds only
+    its own piece."""
+    mesh = like.device_mesh
+    pls = [pl if pl.is_shard(0) or pl.is_shard(1) else _REPLICATE for pl in like.placements]
+    b, cap = like.shape[:2]
+    b0, nb = local_range(b, mesh, pls, 0)
+    s0, ns = local_range(cap, mesh, pls, 1)
+    idx = torch.arange(s0, s0 + ns, device=slot.device)
+    valid = idx[None, :] <= slot[b0:b0 + nb, None]
+    if cfg.sliding_window:
+        valid |= pos[b0:b0 + nb, None] >= cap
+    if active is not None:
+        valid &= active[b0:b0 + nb, None]
+    return from_local(valid, mesh, pls, (b, cap))
+
+
 def attn_apply_step(
     cfg: ModelConfig,
     run: RunConfig,
@@ -273,6 +350,7 @@ def attn_apply_step(
     x,
     pos,
     active: Optional[torch.Tensor] = None,
+    rules: Optional[ShardingRules] = None,
 ):
     """Single-token decode. x: (B, 1, D); pos: (B,) tokens so far *per
     slot*; active: optional (B,) bool. Writes the new K/V into ``cache`` in
@@ -284,44 +362,76 @@ def attn_apply_step(
     active rows are written in place at their slot; a parked row writes its
     slot's old value back, so it neither writes nor, having no valid key,
     attends.
+
+    With ``rules`` and a DTensor cache, the step's k and v are laid out
+    ``("batch", None, None, None)`` as the reference's constraint sites
+    lay them, each rank writes its own shard (:func:`_write_sharded`), and
+    the valid mask takes the cache's layout. K1 then runs over the
+    sequence shards (``sharded_decode_attention``: K1's partials on each
+    shard, three all-reduces) where the cache's sequence is sharded, or
+    through ``ops.decode_attention``'s DTensor path where it is whole. The
+    einsum path over a sharded sequence takes the jnp partials, which keep
+    the reference's uniform spread over an all-invalid row (C3).
     """
     dt = getattr(torch, cfg.compute_dtype)
     b = x.shape[0]
-    q, k, v = _project_qkv(cfg, params, x, pos[:, None])
-
     cache_k, cache_v = cache["k"], cache["v"]
-    cap = cache_k.shape[1]
-    slot = pos % cap if cfg.sliding_window else pos.clamp_max(cap - 1)
-    rows = torch.arange(b, device=x.device)
-    k_new, v_new = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
-    if active is not None:
-        keep = ~active[:, None, None]
-        k_new = torch.where(keep, cache_k[rows, slot], k_new)
-        v_new = torch.where(keep, cache_v[rows, slot], v_new)
-    cache_k[rows, slot] = k_new
-    cache_v[rows, slot] = v_new
+    sharded = rules is not None and is_dtensor(cache_k)
+    q, k, v = _project_qkv(cfg, params, x, pos[:, None], rules)
 
-    # validity, per row: slots < pos+1 filled (full cache: monotone; ring:
-    # all once wrapped) — (B, cap), the mask shape K1 consumes
-    idx = torch.arange(cap, device=x.device)
-    valid = idx[None, :] <= slot[:, None]
-    if cfg.sliding_window:
-        valid |= pos[:, None] >= cap
-    if active is not None:
-        valid &= active[:, None]
+    cap = cache_k.shape[1]
+    if sharded:
+        pos = whole(pos)
+    slot = pos % cap if cfg.sliding_window else pos.clamp_max(cap - 1)
+    if sharded:
+        k = shard_constraint(k, rules, ("batch", None, None, None))
+        v = shard_constraint(v, rules, ("batch", None, None, None))
+        act = None if active is None else whole(active)
+        _write_sharded(cache_k, k[:, 0], slot, act)
+        _write_sharded(cache_v, v[:, 0], slot, act)
+        valid = _valid_sharded(cfg, cache_k, slot, pos, act)
+        seq_axes = [name for name, pl in zip(cache_k.device_mesh.mesh_dim_names, cache_k.placements)
+                    if pl.is_shard(1)]
+    else:
+        rows = torch.arange(b, device=x.device)
+        k_new, v_new = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
+        if active is not None:
+            keep = ~active[:, None, None]
+            k_new = torch.where(keep, cache_k[rows, slot], k_new)
+            v_new = torch.where(keep, cache_v[rows, slot], v_new)
+        cache_k[rows, slot] = k_new
+        cache_v[rows, slot] = v_new
+
+        # validity, per row: slots < pos+1 filled (full cache: monotone; ring:
+        # all once wrapped) — (B, cap), the mask shape K1 consumes
+        idx = torch.arange(cap, device=x.device)
+        valid = idx[None, :] <= slot[:, None]
+        if cfg.sliding_window:
+            valid |= pos[:, None] >= cap
+        if active is not None:
+            valid &= active[:, None]
+        seq_axes = []
 
     scale = 1.0 / cfg.head_dim_**0.5
     impl = run.decode_attention_impl
-    if impl == "kernel":
+    if impl not in ("kernel", "einsum"):
+        raise ValueError(f"unknown decode_attention_impl {impl!r} (the port has einsum, kernel)")
+    if seq_axes:
+        mesh = cache_k.device_mesh
+        batch_axes = tuple(name for name, pl in zip(mesh.mesh_dim_names, cache_k.placements) if pl.is_shard(0))
+        out = sharded_decode_attention(q[:, 0], cache_k, cache_v, valid, mesh, axis=seq_axes[0],
+                                       batch_axes=batch_axes, use_kernel=impl == "kernel")
+        out = out[:, None].to(dt)
+    elif impl == "kernel":
         out = ops.decode_attention(q[:, 0], cache_k, cache_v, valid, softmax_scale=scale)
         out = out[:, None].to(dt)  # (B, H, D) -> (B, 1, H, D)
-    elif impl == "einsum":
+    else:
+        if sharded:  # the heads whole: the GQA split below cuts the head dim
+            q = shard_constraint(q, rules, ("batch", None, None, None))
         qg = _split_gqa(q, cfg.num_kv_heads)  # (B,1,KH,G,D)
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), cache_k.float()) * scale
         scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cache_v.float())
         out = out.reshape(q.shape).to(dt)
-    else:
-        raise ValueError(f"unknown decode_attention_impl {impl!r} (the port has einsum, kernel)")
     return _out_proj(cfg, params, out)

@@ -8,9 +8,8 @@ drift from shapes. The specs become DTensor placements in
 ``parallel/sharding.py``; ``models/model.py`` (``model_specs``,
 ``cache_specs``), ``models/moe.py::resolve_moe_axes``,
 ``optim/adamw.py::opt_state_specs`` and ``launch/steps.py::distribute_tree``
-build on them. The dry-run's shape and cell helpers (``build_shapes``,
-``model_shapes``, ``opt_state_shapes``, ``cell_artifacts``) wait for
-ROADMAP A9d. ``tree_leaves``, ``tree_map`` and ``tree_unflatten`` stand in for
+build on them, and :func:`build_shapes` gives the dry-run's
+allocation-free stand-ins (``meta`` tensors). ``tree_leaves``, ``tree_map`` and ``tree_unflatten`` stand in for
 ``jax.tree`` in the optimizer, the training steps and the checkpoints.
 """
 
@@ -105,6 +104,16 @@ def build_specs(defs, rules: Optional[ShardingRules]):
     if isinstance(defs, dict):
         return {k: build_specs(v, rules) for k, v in defs.items()}
     return [build_specs(v, rules) for v in defs]
+
+
+def build_shapes(defs, dtype=torch.float32):
+    """``meta`` tensors of the defs' shapes in ``dtype`` (the params'
+    stand-ins for the dry-run: no memory, no values)."""
+    if is_def(defs):
+        return torch.empty(defs.shape, dtype=dtype, device="meta")
+    if isinstance(defs, dict):
+        return {k: build_shapes(v, dtype) for k, v in defs.items()}
+    return [build_shapes(v, dtype) for v in defs]
 
 
 def param_count(defs) -> int:

@@ -55,6 +55,7 @@ from repro_torch.models import ssm
 from repro_torch.models.common import (
     ParamDef,
     build_params,
+    build_shapes,
     build_specs,
     mlp_apply,
     mlp_defs,
@@ -70,6 +71,7 @@ from repro_torch.parallel.sharding import (
     ShardingRules,
     gather_sequence,
     pin,
+    placed_full,
     replicate,
     shard_constraint,
     sharded_context,
@@ -144,6 +146,12 @@ def model_specs(cfg: ModelConfig, rules: Optional[ShardingRules]):
     gets the JAX package's spec of ``layers/b{i % period}`` without its
     leading (replicated) stack dim."""
     return build_specs(model_defs(cfg), rules)
+
+
+def model_shapes(cfg: ModelConfig):
+    """Allocation-free stand-ins of :func:`init_model`'s params: fp32
+    tensors on the ``meta`` device (the dry-run)."""
+    return build_shapes(model_defs(cfg))
 
 
 def count_params_exact(cfg: ModelConfig) -> int:
@@ -296,37 +304,46 @@ def forward(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor
 
 
 def prefill(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor, max_len: int,
-            prefix_features: Optional[torch.Tensor] = None):
+            prefix_features: Optional[torch.Tensor] = None, rules: Optional[ShardingRules] = None):
     """Forward + cache build, the frontend's ``prefix_features`` before the
     tokens where given (the cache then holds P + S positions). Returns
-    (last-position logits (B, 1, V), cache)."""
-    h = _embed(cfg, params, tokens, prefix_features)
-    b, seq = h.shape[:2]
-    positions = torch.arange(seq, device=h.device)[None, :]
-    cache = init_cache(cfg, b, max_len, h.device)
-    cache["pos"].fill_(seq)
-    for blk, (kind, j) in zip(params["layers"], _kind_index(cfg)):
-        if kind == "mlstm":
-            y, state = ssm.mlstm_apply_full(cfg, blk["mlstm"], h, chunk=run.ssd_chunk, return_state=True)
-            cache["mlstm"][j].copy_(state)
-            h = h + y
-        elif kind == "slstm":
-            y, state = ssm.slstm_apply_full(cfg, blk["slstm"], h, return_state=True)
-            for key, t in state.items():
-                cache["slstm"][key][j].copy_(t)
-            h = h + y
-        elif kind == "mamba":
-            hn = rms_norm(h, blk["norm"], cfg.norm_eps)
-            y, state = ssm.mamba_apply_full(cfg, blk["mamba"], hn, chunk=run.ssd_chunk, return_state=True)
-            for key, t in state.items():
-                cache["mamba"][key][j].copy_(t)
-            h, _ = _ffn(cfg, blk, h + y, inference=True)
-        else:
-            hn = rms_norm(h, blk["norm"], cfg.norm_eps)
-            y, (k, v) = attn.attn_apply_full(cfg, run, blk["attn"], hn, positions, return_kv=True)
-            attn.attn_fill_cache(cfg, {"k": cache["k"][j], "v": cache["v"][j]}, k, v)
-            h, _ = _ffn(cfg, blk, h + y, inference=True)
-    return _head(cfg, params, h[:, -1:]), cache
+    (last-position logits (B, 1, V), cache).
+
+    With ``rules``, params and tokens are DTensors, the activations are
+    laid out at the training forward's sites and the cache is built as
+    DTensors laid out by :func:`cache_specs` (:func:`init_cache`); without,
+    those are the identity."""
+    with sharded_context(rules):
+        h = _embed(cfg, params, tokens, prefix_features, rules)
+        b, seq = h.shape[:2]
+        positions = torch.arange(seq, device=h.device)[None, :]
+        cache = init_cache(cfg, b, max_len, h.device, rules)
+        cache["pos"].fill_(seq)
+        for blk, (kind, j) in zip(params["layers"], _kind_index(cfg)):
+            if kind == "mlstm":
+                y, state = ssm.mlstm_apply_full(cfg, blk["mlstm"], gather_sequence(h, rules), chunk=run.ssd_chunk,
+                                                return_state=True)
+                cache["mlstm"][j].copy_(state)
+                h = h + y
+            elif kind == "slstm":
+                y, state = ssm.slstm_apply_full(cfg, blk["slstm"], gather_sequence(h, rules), return_state=True)
+                for key, t in state.items():
+                    cache["slstm"][key][j].copy_(t)
+                h = h + y
+            elif kind == "mamba":
+                hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+                y, state = ssm.mamba_apply_full(cfg, blk["mamba"], hn, chunk=run.ssd_chunk, return_state=True,
+                                                rules=rules)
+                for key, t in state.items():
+                    cache["mamba"][key][j].copy_(t)
+                h, _ = _ffn(cfg, blk, h + y, inference=True, rules=rules)
+            else:
+                hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+                y, (k, v) = attn.attn_apply_full(cfg, run, blk["attn"], hn, positions, return_kv=True, rules=rules)
+                attn.attn_fill_cache(cfg, {"k": cache["k"][j], "v": cache["v"][j]}, k, v)
+                h, _ = _ffn(cfg, blk, h + y, inference=True, rules=rules)
+            h = shard_constraint(h, rules, ("batch", "sp", None))
+        return _head(cfg, params, gather_sequence(h, rules)[:, -1:], rules), cache
 
 
 def _write_rows(dst: torch.Tensor, new: torch.Tensor, active: Optional[torch.Tensor]) -> None:
@@ -344,6 +361,7 @@ def decode_step(
     cache: dict,
     tokens: torch.Tensor,
     active: Optional[torch.Tensor] = None,
+    rules: Optional[ShardingRules] = None,
 ):
     """One decode step. tokens: (B, 1). Returns (logits (B, 1, V), cache).
 
@@ -357,37 +375,45 @@ def decode_step(
     parked session resumes from its own state. Under MoE every row is its own
     dispatch group at S = 1 (capacity one slot per expert), so rows never
     compete for experts. The cache is updated in place and returned.
+
+    With ``rules``, params, tokens and the cache are DTensors (the cache
+    laid out by :func:`cache_specs`, ``pos`` replicated): the embedding and
+    the head are laid out as the reference's constraints say, each
+    attention layer writes its own cache shards and runs K1 over them
+    (``models/attention.py::attn_apply_step``), and the recurrent states
+    are written back on active rows, shard by shard.
     """
-    h = _embed(cfg, params, tokens)
-    pos = cache["pos"]
-    for blk, (kind, j) in zip(params["layers"], _kind_index(cfg)):
-        if kind == "mlstm":
-            y, state = ssm.mlstm_apply_step(cfg, blk["mlstm"], cache["mlstm"][j], h)
-            _write_rows(cache["mlstm"][j], state, active)
-            h = h + y
-        elif kind == "slstm":
-            layer = {key: t[j] for key, t in cache["slstm"].items()}
-            y, state = ssm.slstm_apply_step(cfg, blk["slstm"], layer, h)
-            for key, t in state.items():
-                _write_rows(layer[key], t, active)
-            h = h + y
-        elif kind == "mamba":
-            hn = rms_norm(h, blk["norm"], cfg.norm_eps)
-            layer = {key: t[j] for key, t in cache["mamba"].items()}
-            y, state = ssm.mamba_apply_step(cfg, blk["mamba"], layer, hn)
-            for key, t in state.items():
-                _write_rows(layer[key], t, active)
-            h, _ = _ffn(cfg, blk, h + y, inference=True)
+    with sharded_context(rules):
+        h = _embed(cfg, params, tokens, rules=rules)
+        pos = cache["pos"]
+        for blk, (kind, j) in zip(params["layers"], _kind_index(cfg)):
+            if kind == "mlstm":
+                y, state = ssm.mlstm_apply_step(cfg, blk["mlstm"], cache["mlstm"][j], h, rules)
+                _write_rows(cache["mlstm"][j], state, active)
+                h = h + y
+            elif kind == "slstm":
+                layer = {key: t[j] for key, t in cache["slstm"].items()}
+                y, state = ssm.slstm_apply_step(cfg, blk["slstm"], layer, h, rules)
+                for key, t in state.items():
+                    _write_rows(layer[key], t, active)
+                h = h + y
+            elif kind == "mamba":
+                hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+                layer = {key: t[j] for key, t in cache["mamba"].items()}
+                y, state = ssm.mamba_apply_step(cfg, blk["mamba"], layer, hn, rules)
+                for key, t in state.items():
+                    _write_rows(layer[key], t, active)
+                h, _ = _ffn(cfg, blk, h + y, inference=True, rules=rules)
+            else:
+                hn = rms_norm(h, blk["norm"], cfg.norm_eps)
+                layer_cache = {"k": cache["k"][j], "v": cache["v"][j]}
+                h = h + attn.attn_apply_step(cfg, run, blk["attn"], layer_cache, hn, pos, active, rules)
+                h, _ = _ffn(cfg, blk, h, inference=True, rules=rules)
+        logits = _head(cfg, params, h, rules)
+        if active is None:
+            pos += 1
         else:
-            hn = rms_norm(h, blk["norm"], cfg.norm_eps)
-            layer_cache = {"k": cache["k"][j], "v": cache["v"][j]}
-            h = h + attn.attn_apply_step(cfg, run, blk["attn"], layer_cache, hn, pos, active)
-            h, _ = _ffn(cfg, blk, h, inference=True)
-    logits = _head(cfg, params, h)
-    if active is None:
-        pos += 1
-    else:
-        pos += active.to(pos.dtype)
+            pos += active.to(pos.dtype)
     return logits, cache
 
 
@@ -405,49 +431,65 @@ def _block_cache_axes(kind: str) -> dict:
     raise ValueError(kind)
 
 
-def _spec_tree(template, axes, rules):
+def _spec_tree(layout, axes, rules):
     """Specs of a stacked cache subtree: each tensor (L, ...) gets a
     replicated layer dim before its per-layer axes."""
-    if isinstance(template, dict):
-        return {k: _spec_tree(template[k], axes[k], rules) for k in template}
+    if isinstance(layout, dict):
+        return {k: _spec_tree(layout[k], axes[k], rules) for k in layout}
     if rules is None:
         return PartitionSpec()
-    return rules.spec((None,) + tuple(axes), (0,) + tuple(template.shape[1:]))
+    return rules.spec((None,) + tuple(axes), (0,) + tuple(layout[0][1:]))
 
 
 def cache_specs(cfg: ModelConfig, rules: Optional[ShardingRules], batch: int, max_len: int) -> dict:
     """The PartitionSpec tree of :func:`init_cache`'s output. Each tensor
     stacked over the layers of its kind gets the JAX package's spec of
     that kind's per-layer cache (``layers/b{j}/<kind>``)."""
-    template = init_cache(cfg, batch, max_len, "meta")
+    layout = _cache_layout(cfg, batch, max_len)
     out = {"pos": PartitionSpec()}
     for kind in _kind_counts(cfg):
         axes = _block_cache_axes(kind)
-        out.update(_spec_tree({k: template[k] for k in axes}, axes, rules))
+        out.update(_spec_tree({k: layout[k] for k in axes}, axes, rules))
     return out
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    """Zero-filled cache (decode-from-scratch, or a serving arena), with
-    the parts the architecture has; ``max_len`` sizes the KV part only."""
-    counts = _kind_counts(cfg)
-    cache = {"pos": torch.zeros((batch,), dtype=torch.long, device=device)}
+def _cache_layout(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """``(shape, dtype, fill)`` of every cache tensor, in the cache's tree
+    (no tensor is made: the dry-run counts every tensor its step makes)."""
+    counts, dt, f32 = _kind_counts(cfg), _compute_dtype(cfg), torch.float32
+    out = {"pos": ((batch,), torch.long, 0)}
     if "attn" in counts:
-        cap = attn.cache_capacity(cfg, max_len)
-        shape = (counts["attn"], batch, cap, cfg.num_kv_heads, cfg.head_dim_)
-        dt = _compute_dtype(cfg)
-        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
-        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+        shape = (counts["attn"], batch, attn.cache_capacity(cfg, max_len), cfg.num_kv_heads, cfg.head_dim_)
+        out["k"], out["v"] = (shape, dt, 0), (shape, dt, 0)
     if "mlstm" in counts:
-        one = ssm.mlstm_init_cache(cfg, batch, device)
-        cache["mlstm"] = one.expand(counts["mlstm"], *one.shape).contiguous()
+        out["mlstm"] = ((counts["mlstm"], batch, cfg.num_heads, cfg.head_dim_, cfg.head_dim_ + 1), f32, 0)
     if "slstm" in counts:
-        one = ssm.slstm_init_cache(cfg, batch, device)
-        cache["slstm"] = {k: t.expand(counts["slstm"], *t.shape).contiguous() for k, t in one.items()}
+        row = (counts["slstm"], batch, cfg.d_model)
+        out["slstm"] = {"h": (row, dt, 0), "c": (row, f32, 0), "n": (row, f32, 0), "m": (row, f32, ssm.M_INIT)}
     if "mamba" in counts:
-        one = ssm.mamba_init_cache(cfg, batch, device)
-        cache["mamba"] = {k: t.expand(counts["mamba"], *t.shape).contiguous() for k, t in one.items()}
-    return cache
+        lead = (counts["mamba"], batch, cfg.conv_width - 1)
+        heads = (counts["mamba"], batch, ssm.mamba_heads(cfg), cfg.d_state, ssm.MAMBA_HEAD_DIM)
+        out["mamba"] = {"conv_x": (lead + (cfg.d_inner,), dt, 0), "conv_b": (lead + (cfg.d_state,), dt, 0),
+                        "conv_c": (lead + (cfg.d_state,), dt, 0), "ssm": (heads, f32, 0)}
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, rules: Optional[ShardingRules] = None) -> dict:
+    """Zero-filled cache (decode-from-scratch, or a serving arena), with
+    the parts the architecture has (the sLSTM stabiliser ``m`` at -1e30);
+    ``max_len`` sizes the KV part only. With ``rules``, every tensor is a
+    DTensor on ``rules.mesh`` laid out by :func:`cache_specs`, each rank
+    making only its own shard."""
+    specs = cache_specs(cfg, rules, batch, max_len) if rules is not None else None
+
+    def make(entry, spec):
+        shape, dtype, fill = entry
+        if rules is not None:
+            return placed_full(shape, fill, dtype, device, rules.mesh, spec)
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    return {key: {k: make(e[k], specs and specs[key][k]) for k in e} if isinstance(e, dict)
+            else make(e, specs and specs[key]) for key, e in _cache_layout(cfg, batch, max_len).items()}
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamDef, nrm
-from repro_torch.parallel.sharding import ShardingRules, replicated_like, shard_constraint, whole
+from repro_torch.parallel.sharding import ShardingRules, pin, replicated_like, shard_constraint, whole
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -147,4 +147,7 @@ def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, inference: bool =
     f_e = r.counts.float() * (1.0 / g)
     aux = e * (f_e * r.probs.mean(1)).sum(-1).mean()
     dropped = 1.0 - r.keep.float().sum() * (1.0 / r.keep.numel())
-    return y.reshape(b, s, d), {"moe_aux": aux, "moe_drop_frac": dropped}
+    # replicated DTensors on DTensor inputs, so that the loss's gradient
+    # comes back into the whole tensors as plain tensors
+    # y pinned: its gradient comes back replicated before the view into groups
+    return pin(y.reshape(b, s, d)), {"moe_aux": replicated_like(aux, x), "moe_drop_frac": replicated_like(dropped, x)}

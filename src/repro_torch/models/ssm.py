@@ -35,7 +35,17 @@ from repro_torch.models.common import (
     uniform_init,
     zeros_init,
 )
-from repro_torch.parallel.sharding import ShardingRules, gather_sequence, shard_constraint
+from repro_torch.parallel.sharding import (
+    ShardingRules,
+    elementwise,
+    from_local,
+    is_dtensor,
+    gather_sequence,
+    pin,
+    settle,
+    shard_constraint,
+    split_heads,
+)
 
 DEFAULT_CHUNK = 256
 MAMBA_HEAD_DIM = 128
@@ -62,7 +72,20 @@ def chunked_ssd(x, loga, b, c, chunk: int = DEFAULT_CHUNK):
 
 def ssd_step(h, x_t, loga_t, b_t, c_t):
     """Single decode step. h: (B, H, N, P) fp32; x_t: (B, H, P); loga_t
-    (B, H); b_t, c_t (B, H, N). Returns ``(y (B, H, P) in x_t's dtype, new h)``."""
+    (B, H); b_t, c_t (B, H, N). Returns ``(y (B, H, P) in x_t's dtype, new h)``.
+
+    On DTensors the step runs on each rank's rows and heads (every input
+    laid out as the state's batch and heads): it is independent per
+    (row, head), and DTensor cannot fold a head-sharded (B, H) into the
+    product's batch (PyTorch 2.11)."""
+    if is_dtensor(h):
+        from torch.distributed.tensor import Replicate
+
+        mesh = h.device_mesh
+        pls = [pl if pl.is_shard(0) or pl.is_shard(1) else Replicate() for pl in h.placements]
+        ins = [t.redistribute(mesh, pls) for t in (h, x_t, loga_t, b_t, c_t)]
+        y, new = ssd_step(*(t.to_local() for t in ins))
+        return from_local(y, mesh, pls, x_t.shape), from_local(new, mesh, pls, h.shape)
     a = torch.exp(loga_t.float())
     h = a[..., None, None] * h + b_t.float()[..., :, None] * x_t.float()[..., None, :]
     y = (c_t.float()[..., None, :] @ h)[..., 0, :]
@@ -167,21 +190,9 @@ def mamba_apply_full(cfg: ModelConfig, params, x, chunk=DEFAULT_CHUNK, return_st
     return (out, state) if return_state else out
 
 
-def mamba_init_cache(cfg: ModelConfig, batch: int, device) -> dict:
-    """``{"conv_x" (B, W - 1, d_inner), "conv_b", "conv_c" (B, W - 1, N)}``
-    in the compute dtype and ``"ssm" (B, H, N, P)`` fp32, all zero."""
-    H, P, N = mamba_heads(cfg), MAMBA_HEAD_DIM, cfg.d_state
-    w, dt_ = cfg.conv_width, _dtype(cfg)
-    return {
-        "conv_x": torch.zeros((batch, w - 1, cfg.d_inner), dtype=dt_, device=device),
-        "conv_b": torch.zeros((batch, w - 1, N), dtype=dt_, device=device),
-        "conv_c": torch.zeros((batch, w - 1, N), dtype=dt_, device=device),
-        "ssm": torch.zeros((batch, H, N, P), dtype=torch.float32, device=device),
-    }
-
-
 def mamba_cache_axes() -> dict:
-    """Logical axes of one layer's Mamba state, as :func:`mamba_init_cache`."""
+    """Logical axes of one layer's Mamba state: ``conv_x`` (B, W - 1,
+    d_inner), ``conv_b``, ``conv_c`` (B, W - 1, N), ``ssm`` (B, H, N, P)."""
     return {
         "conv_x": ("batch", None, "tp"),
         "conv_b": ("batch", None, None),
@@ -190,8 +201,10 @@ def mamba_cache_axes() -> dict:
     }
 
 
-def mamba_apply_step(cfg: ModelConfig, params, state: dict, x):
-    """x: (B, 1, D); state as :func:`mamba_init_cache`. Returns (out, new state)."""
+def mamba_apply_step(cfg: ModelConfig, params, state: dict, x, rules: Optional[ShardingRules] = None):
+    """x: (B, 1, D); state as :func:`mamba_cache_axes` lists it. Returns (out, new
+    state). ``rules`` as the reference's: nothing is constrained inside;
+    the state may be DTensors laid out by :func:`mamba_cache_axes`."""
     B = x.shape[0]
     H, P, N = mamba_heads(cfg), MAMBA_HEAD_DIM, cfg.d_state
     z, xin, bmat, cmat, dt, loga, new = _mamba_project(cfg, params, x, state)
@@ -246,13 +259,13 @@ def _mlstm_qkv_gates(cfg, params, x):
     H, hd = cfg.num_heads, cfg.head_dim_
     x = rms_norm(x, params["mixer_norm"], cfg.norm_eps)
     # einsum "bsd,dhk->bshk" as one matmul on the flattened head axis
-    q = (x @ params["wq"].to(dt).flatten(1)).view(b, s, H, hd)
-    k = (x @ params["wk"].to(dt).flatten(1)).view(b, s, H, hd)
-    v = (x @ params["wv"].to(dt).flatten(1)).view(b, s, H, hd)
+    q = split_heads(x @ pin(params["wq"].to(dt).flatten(1)), H)
+    k = split_heads(x @ pin(params["wk"].to(dt).flatten(1)), H)
+    v = split_heads(x @ pin(params["wv"].to(dt).flatten(1)), H)
     k = k / (hd**0.5)
     i_raw = x @ params["wi"].to(dt) + params["bi"].to(dt)
     f_raw = x @ params["wf"].to(dt) + params["bf"].to(dt)
-    loga = F.logsigmoid(f_raw.float())  # (B, S, H)
+    loga = elementwise(F.logsigmoid, f_raw.float())  # (B, S, H)
     igate = torch.exp(torch.clamp(i_raw.float(), -10.0, 10.0))
     return q, k, v, loga, igate
 
@@ -266,7 +279,9 @@ def _mlstm_read(y_aug):
 def _mlstm_out(cfg, params, x, y_aug):
     dt = _dtype(cfg)
     b, s, _ = x.shape
-    y = _mlstm_read(y_aug).reshape(b, s, cfg.num_heads * cfg.head_dim_)
+    # pinned: the gradient comes back laid out as the merged heads were, so
+    # that its view back into heads never splits a sharded dim
+    y = pin(_mlstm_read(y_aug).reshape(b, s, cfg.num_heads * cfg.head_dim_))
     y = rms_norm(y, params["head_norm"], cfg.norm_eps)
     h = x + (y @ params["wo"].to(dt))  # inner residual (mixer)
     return _project_out(cfg, params, x, h)
@@ -285,11 +300,6 @@ def mlstm_apply_full(cfg: ModelConfig, params, x, chunk=DEFAULT_CHUNK, return_st
     return (out, state) if return_state else out
 
 
-def mlstm_init_cache(cfg: ModelConfig, batch: int, device) -> torch.Tensor:
-    H, hd = cfg.num_heads, cfg.head_dim_
-    return torch.zeros((batch, H, hd, hd + 1), dtype=torch.float32, device=device)
-
-
 def mlstm_cache_axes() -> tuple:
     """Logical axes of one layer's mLSTM memory (B, H, hd, hd + 1); the JAX
     package keeps it under ``{"state": ...}``, the port's cache holds the
@@ -297,8 +307,10 @@ def mlstm_cache_axes() -> tuple:
     return ("batch", "tp", None, None)
 
 
-def mlstm_apply_step(cfg: ModelConfig, params, state, x):
-    """x: (B, 1, D); state (B, H, hd, hd + 1) fp32. Returns (out, new state)."""
+def mlstm_apply_step(cfg: ModelConfig, params, state, x, rules: Optional[ShardingRules] = None):
+    """x: (B, 1, D); state (B, H, hd, hd + 1) fp32. Returns (out, new
+    state). ``rules`` as the reference's: nothing is constrained inside;
+    the state may be a DTensor laid out by :func:`mlstm_cache_axes`."""
     dt = _dtype(cfg)
     q, k, v, loga, igate = _mlstm_qkv_gates(cfg, params, x)  # S = 1
     ones = torch.ones((*v.shape[:1], v.shape[2], 1), dtype=dt, device=x.device)
@@ -360,13 +372,15 @@ def _slstm_cell(cfg, rec, bias, carry, xg):
     B, d = h.shape
     H = cfg.num_heads
     dh = d // H
-    r = torch.bmm(h.view(B, H, dh).transpose(0, 1), rec)  # (H, B, 4·dh)
-    r = r.view(H, B, 4, dh).permute(1, 2, 0, 3).reshape(B, 4, d)
+    r = torch.bmm(split_heads(h, H).transpose(0, 1), rec)  # (H, B, 4·dh)
+    # pinned: the gradient of the merged heads comes back laid out as r,
+    # so that its view back into heads never splits a sharded dim
+    r = pin(r.view(H, B, 4, dh).permute(1, 2, 0, 3).reshape(B, 4, d))
     pre = xg + r + bias  # each gate: x + rec + bias, in h's dtype
     it, ft = pre[:, 0].float(), pre[:, 1].float()
     zt = torch.tanh(pre[:, 2])
     ot = torch.sigmoid(pre[:, 3])
-    logf = F.logsigmoid(ft)
+    logf = elementwise(F.logsigmoid, ft)
     m_new = torch.maximum(logf + m, it)
     i_p = torch.exp(it - m_new)
     f_p = torch.exp(logf + m - m_new)
@@ -376,11 +390,21 @@ def _slstm_cell(cfg, rec, bias, carry, xg):
     return h_new, c_new, n_new, m_new
 
 
+def _slstm_scan(cfg, rec, bias, carry, xg):
+    """The time loop: ``(the h of every step, the last carry)`` from
+    ``carry`` over the steps of ``xg`` (B, S, 4, d)."""
+    hs = []
+    for t in range(xg.shape[1]):
+        carry = _slstm_cell(cfg, rec, bias, carry, xg[:, t])
+        hs.append(carry[0])
+    return hs, carry
+
+
 def _slstm_gates_in(cfg, params, x):
     """rms_norm(x) @ W for the four gates, stacked as (B, S, 4, d)."""
     dt = _dtype(cfg)
     xn = rms_norm(x, params["mixer_norm"], cfg.norm_eps)
-    return torch.stack([xn @ params[f"w{g}"].to(dt) for g in SLSTM_GATES], dim=2)
+    return settle(torch.stack([xn @ params[f"w{g}"].to(dt) for g in SLSTM_GATES], dim=2))
 
 
 def _slstm_out(cfg, params, x, y):
@@ -413,19 +437,17 @@ def slstm_apply_full(cfg: ModelConfig, params, x, return_state=False):
     xg = _slstm_gates_in(cfg, params, x)
     rec, bias = _slstm_recurrent(params, xg.dtype)
     init = slstm_init_cache(cfg, B, x.device)
-    carry = tuple(init[k] for k in ("h", "c", "n", "m"))
-    hs = []
-    for t in range(S):
-        carry = _slstm_cell(cfg, rec, bias, carry, xg[:, t])
-        hs.append(carry[0])
+    hs, carry = _slstm_scan(cfg, rec, bias, tuple(init[k] for k in ("h", "c", "n", "m")), xg)
     out = _slstm_out(cfg, params, x, torch.stack(hs, dim=1))
     if return_state:
         return out, dict(zip(("h", "c", "n", "m"), carry))
     return out
 
 
-def slstm_apply_step(cfg: ModelConfig, params, state: dict, x):
-    """x: (B, 1, D); state ``{"h", "c", "n", "m"}``. Returns (out, new state)."""
+def slstm_apply_step(cfg: ModelConfig, params, state: dict, x, rules: Optional[ShardingRules] = None):
+    """x: (B, 1, D); state ``{"h", "c", "n", "m"}``. Returns (out, new
+    state). ``rules`` as the reference's: nothing is constrained inside;
+    the state may be DTensors laid out by :func:`slstm_cache_axes`."""
     xg = _slstm_gates_in(cfg, params, x)
     rec, bias = _slstm_recurrent(params, xg.dtype)
     carry = _slstm_cell(cfg, rec, bias, tuple(state[k] for k in ("h", "c", "n", "m")), xg[:, 0])

@@ -13,7 +13,7 @@ schedule and the bias corrections are computed in fp32 tensors, as the
 reference computes them, not in Python floats. ``opt_state_specs`` gives
 the state's PartitionSpec tree; on DTensor leaves the update runs shard
 by shard and the global norm reduces each leaf to a plain fp32 scalar
-first. ``opt_state_shapes`` belongs to the dry-run (ROADMAP A9d).
+first. ``opt_state_shapes`` gives the dry-run's allocation-free stand-ins.
 """
 
 from __future__ import annotations
@@ -40,6 +40,16 @@ def opt_state_specs(param_specs) -> dict:
     """The optimizer state's PartitionSpec tree: each moment lives where its
     parameter shard lives (ZeRO-style), ``step`` is replicated."""
     return {"step": PartitionSpec(), "mu": param_specs, "nu": param_specs}
+
+
+def opt_state_shapes(param_shapes, moments_dtype=torch.float32) -> dict:
+    """``meta`` stand-ins of :func:`init_opt_state`'s output for params of
+    ``param_shapes`` (the dry-run: no memory, no values)."""
+    def f(p):
+        return torch.empty(p.shape, dtype=moments_dtype, device="meta")
+
+    return {"step": torch.empty((), dtype=torch.int32, device="meta"), "mu": tree_map(f, param_shapes),
+            "nu": tree_map(f, param_shapes)}
 
 
 def lr_schedule(run: RunConfig, step: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import from_local
 
 
 def _placed(t: torch.Tensor, mesh, placements):
@@ -66,7 +67,7 @@ def sharded_decode_attention(
     differ) or plain whole tensors, the same on every rank. The batch is
     sharded over ``batch_axes`` when every one of them is in the mesh.
     Returns a DTensor (B, H, D) in q's dtype, replicated over ``axis``."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
 
     names = tuple(mesh.mesh_dim_names)
     bdims = batch_axes if batch_axes and all(a in names for a in batch_axes) else ()
@@ -96,5 +97,4 @@ def sharded_decode_attention(
     dist.all_reduce(num, op=dist.ReduceOp.SUM, group=group)
     dist.all_reduce(den, op=dist.ReduceOp.SUM, group=group)
     res = (num / den.clamp_min(1e-30)[..., None]).to(q.dtype)
-    return DTensor.from_local(res, mesh, layout(None), run_check=False, shape=torch.Size(q.shape),
-                              stride=(q.shape[1] * q.shape[2], q.shape[2], 1))
+    return from_local(res, mesh, layout(None), q.shape)

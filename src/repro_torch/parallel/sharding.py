@@ -105,8 +105,12 @@ class ShardingRules:
 
     # ------------------------------------------------------------------
     def resolve(self, logical: Optional[str], dim_size: Optional[int] = None):
-        """Map one logical axis name to a physical axis (or None)."""
-        if logical is None or logical == "null":
+        """Map one logical axis name to a physical axis (or None). A dim of
+        size 1 is never split: where the JAX package names a mesh axis of
+        one device for it (which splits nothing), the port replicates, since
+        DTensor refuses to fold a sharded dim of size 1 into a view (a
+        prompt of batch 1, a decode step's one token on a (1, 1) mesh)."""
+        if logical is None or logical == "null" or dim_size == 1:
             return None
         if logical == "batch":
             if not self.dp_axes:
@@ -231,6 +235,21 @@ def gather_sequence(x, rules: Optional[ShardingRules]):
     return shard_constraint(x, rules, ("batch",) + (None,) * (x.dim() - 1))
 
 
+def split_heads(x, n_heads: int):
+    """``x`` (..., n_heads * hd) viewed as (..., n_heads, hd). On a DTensor
+    whose last dim is cut into more pieces than divide ``n_heads`` (xlstm's
+    4 heads on a 16-way ``model`` axis), that dim is made whole first: no
+    head is cut between ranks."""
+    if is_dtensor(x):
+        last = x.dim() - 1
+        _, n = shard_index(x.device_mesh, x.placements, last)
+        if n_heads % n:
+            from torch.distributed.tensor import Replicate
+
+            x = x.redistribute(x.device_mesh, [Replicate() if pl.is_shard(last) else pl for pl in x.placements])
+    return x.view(*x.shape[:-1], n_heads, x.shape[-1] // n_heads)
+
+
 def pin(x):
     """``x`` unchanged; on a DTensor, its gradient is laid out as ``x``
     before it flows on. Put after a view whose backward view DTensor can
@@ -238,6 +257,32 @@ def pin(x):
     if not isinstance(x, torch.Tensor) or not is_dtensor(x):
         return x
     return x.redistribute(x.device_mesh, x.placements)
+
+
+def elementwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``, on each rank's own shard where
+    ``x`` is a DTensor (laid out as ``x``; a partial sum is reduced first):
+    for elementwise ops that DTensor has no sharding rule for, such as
+    ``log_sigmoid``'s forward and backward."""
+    if not isinstance(x, torch.Tensor) or not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor
+
+    x = settle(x)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def settle(x):
+    """``x`` with its partial sums reduced (a DTensor's ``Partial``
+    placements made ``Replicate``): before an elementwise op with a tensor
+    laid out otherwise, which PyTorch 2.11's DTensor would meet by turning
+    that tensor partial, a redistribution it does not have."""
+    if not isinstance(x, torch.Tensor) or not is_dtensor(x) or not any(pl.is_partial() for pl in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate() if pl.is_partial() else pl for pl in x.placements])
 
 
 def replicate(x):
@@ -254,6 +299,52 @@ def whole(x):
     """The whole of ``x`` as a plain tensor on every rank (``x`` itself
     where it is plain): for ops with no DTensor sharding rule."""
     return replicate(x).to_local() if isinstance(x, torch.Tensor) and is_dtensor(x) else x
+
+
+def shard_index(mesh, placements, dim: int) -> tuple[int, int]:
+    """(this rank's shard index along tensor dim ``dim``, number of
+    shards): the mesh dims whose placement is ``Shard(dim)``, in mesh-dim
+    order."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
+    return idx, n
+
+
+def local_range(size: int, mesh, placements, dim: int) -> tuple[int, int]:
+    """(start, length) of this rank's piece of a tensor dim of ``size``
+    laid out by ``placements``: ``torch.chunk``'s cut, as DTensor's."""
+    idx, n = shard_index(mesh, placements, dim)
+    step = -(-size // n)
+    start = min(idx * step, size)
+    return start, min(step, size - start)
+
+
+def from_local(local: torch.Tensor, mesh, placements, shape):
+    """``local`` as this rank's shard of a DTensor of global ``shape``,
+    contiguous, with no communication."""
+    from torch.distributed.tensor import DTensor
+
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
+
+
+def placed_full(shape, fill: float, dtype, device, mesh, spec: PartitionSpec):
+    """A DTensor of ``shape`` laid out by ``spec`` whose every element is
+    ``fill``: each rank makes only its own piece (no communication, and no
+    whole tensor anywhere), as the cache and the dry-run's stand-ins are
+    made."""
+    pls = spec_placements(mesh, spec)
+    local = [local_range(n, mesh, pls, d)[1] for d, n in enumerate(shape)]
+    return from_local(torch.full(local, fill, dtype=dtype, device=device), mesh, pls, shape)
 
 
 def replicated_like(t: torch.Tensor, like):

@@ -21,7 +21,18 @@ check; the JAX references are computed here while it runs:
 * the forward loss with rules of moonshot-v1-16b-a3b-smoke,
   xlstm-1.3b-smoke and internlm2-1.8b-smoke with 6 q heads (padded to 8
   by ``pad_attention_heads_to``) within 1e-4 of the loss without rules
-  (the MoE, mLSTM and sLSTM paths, K3's DTensor path, the padded heads).
+  (the MoE, mLSTM and sLSTM paths, K3's DTensor path, the padded heads);
+* the sharded serve steps (``make_prefill_step``/``make_serve_step`` and
+  ``decode_step`` with rules) on (2, 4), the cache's sequence over the
+  4-way model axis: the train-step cut (prefill of 4 prompts, 6 greedy
+  decode steps) against the port's one-process steps and the JAX
+  package's ``prefill``/``decode_step(..., rules=None)`` on the same
+  weights, logits within 1e-4 and greedy tokens identical, K1 through
+  ``sharded_decode_attention``; a parked row whose cache is left bit for
+  bit; a sliding-window ring that wraps; the einsum path's all-invalid
+  row spread uniformly as the reference's (C3); and xlstm-, jamba- and
+  moonshot-smoke decoding with rules as without, parked rows' states
+  left bit for bit.
 
 In one process: each sequence shard's K1 partials against the JAX
 package's ``decode_attention(..., return_partials=True, interpret=True)``,
@@ -63,6 +74,26 @@ except ImportError:  # the card's machine has no JAX: only the gpu test runs the
 
 ROOT = Path(__file__).resolve().parents[1]
 SPAWN_LIMIT_S = 300
+
+
+def _jax_serve(case: str, jparams):
+    """The JAX package's prefill and greedy decode_step (no rules, the
+    einsum decode) for a serve case of the train-step cut: logits and
+    tokens of every step."""
+    _, window, _, _ = W.SERVE_CASES[case]
+    jcfg = jax_get_config("internlm2-1.8b").reduced(num_layers=2, d_model=64, vocab_size=64, param_dtype="float32",
+                                                    compute_dtype="float32", sliding_window=window)
+    jrun = JaxRunConfig(attention_impl="xla", decode_attention_impl="einsum")
+    _, _, _, prompts, active = W.serve_setup(case, {})
+    logits, cache = JM.prefill(jcfg, jrun, jparams, jnp.asarray(prompts), W.SERVE_MAX_LEN)
+    out = {"logits": [np.asarray(logits)], "tokens": []}
+    for act in active:
+        tok = out["logits"][-1].argmax(-1)
+        out["tokens"].append(tok)
+        logits, cache = JM.decode_step(jcfg, jrun, jparams, cache, jnp.asarray(tok), None,
+                                       None if act is None else jnp.asarray(act))
+        out["logits"].append(np.asarray(logits))
+    return out
 
 
 def _needs_jax():
@@ -112,6 +143,11 @@ def ranks(tmp_path_factory):
         for arch in W.FWD_ARCHS:
             fcfg, frun, fparams, tokens = W.fwd_setup(arch)
             ref[f"forward/{arch}"] = W.fwd_loss(fcfg, frun, fparams, tokens).item()
+        cut_params = bridge.params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+        for case in W.SERVE_CASES:
+            ref[f"serve/{case}"] = W.serve(*W.serve_setup(case, cut_params))
+            if W.SERVE_CASES[case][0] == "cut" and case != "cut/parked":
+                ref[f"jax_serve/{case}"] = _jax_serve(case, jparams)
         _, err = proc.communicate(timeout=SPAWN_LIMIT_S)
     finally:
         if proc.poll() is None:
@@ -210,6 +246,66 @@ def test_sharded_train_step_matches_jax(ranks):
 def test_forward_with_rules_matches_without(ranks, arch):
     res, ref = ranks
     assert abs(res[f"forward/{arch}"] - ref[f"forward/{arch}"]) < 1e-4
+
+
+def _logit_tol(case: str, ref_logits) -> float:
+    """1e-4, of the largest |logit| for the smoke configs: the sharded
+    projections sum in another order, and the random-weight xLSTM stack
+    carries that up to 3e-5 of the largest logit into its logits in fp32."""
+    return 1e-4 if case.startswith("cut") else 1e-4 * max(1.0, max(float(np.abs(x).max()) for x in ref_logits))
+
+
+@pytest.mark.parametrize("case", list(W.SERVE_CASES))
+def test_sharded_serve_matches_one_process(ranks, case):
+    res, ref = ranks
+    got, exp = res[f"serve/{case}"], ref[f"serve/{case}"]
+    tol = _logit_tol(case, [t.numpy() for t in exp["logits"]])
+    for step, (a, b) in enumerate(zip(got["logits"], exp["logits"])):
+        assert (a - b).abs().max().item() < tol, (step, (a - b).abs().max().item())
+    assert all(torch.equal(a, b) for a, b in zip(got["tokens"], exp["tokens"]))
+
+
+@pytest.mark.parametrize("case", ["cut", "cut/window", "cut/einsum"])
+def test_sharded_serve_matches_jax(ranks, case):
+    """Against the JAX package's prefill and decode_step without rules on
+    the same weights. ``cut/einsum`` parks row 1 from the first step: it
+    has no valid key, and both spread its attention uniformly over the
+    cache (C3); the JAX package writes no slot for it either (its parked
+    row's slot is -1 outside a window)."""
+    res, ref = ranks
+    got, exp = res[f"serve/{case}"], ref[f"jax_serve/{case}"]
+    for step, (a, b) in enumerate(zip(got["logits"], exp["logits"])):
+        assert np.abs(a.numpy() - b).max() < 1e-4, (step, np.abs(a.numpy() - b).max())
+    assert all(np.array_equal(a.numpy(), b) for a, b in zip(got["tokens"], exp["tokens"]))
+
+
+def test_sharded_serve_runs_k1_over_sequence_shards(ranks):
+    """The cache (L, B, cap, KH, hd) has its batch over ``data`` and its
+    sequence over ``model``; every attention layer of every decode step
+    runs K1 through ``sharded_decode_attention`` (the einsum path through
+    its jnp partials)."""
+    res, _ = ranks
+    got = res["serve/cut"]
+    assert got["placements"]["k"] == [1, 2] and got["placements"]["pos"] == ["R", "R"]
+    assert got["sharded_decode_calls"] == [True] * (2 * W.SERVE_STEPS)
+    assert res["serve/cut/einsum"]["sharded_decode_calls"] == [False] * (2 * W.SERVE_STEPS)
+
+
+def _rows(tree, row: int) -> list:
+    """Row ``row`` of every stacked cache tensor (batch on dim 1; pos on dim 0)."""
+    return [t[row] if t.dim() == 1 else t[:, row] for t in tree_leaves(tree)]
+
+
+@pytest.mark.parametrize("case", [c for c, v in W.SERVE_CASES.items() if v[3] == 2])
+def test_sharded_serve_parked_row_untouched(ranks, case):
+    """Row 1 is parked from the second decode step on: its position, KV
+    slots and recurrent state (every shard of them) keep their bits."""
+    res, _ = ranks
+    got = res[f"serve/{case}"]
+    parked = W.SERVE_CASES[case][3]  # caches[i]: after the prefill (0) and after each step
+    before, after = got["caches"][parked], got["caches"][-1]
+    assert all(torch.equal(a, b) for a, b in zip(_rows(before, 1), _rows(after, 1)))
+    assert not all(torch.equal(a, b) for a, b in zip(_rows(before, 0), _rows(after, 0)))
 
 
 # --- one process ------------------------------------------------------------------

@@ -153,18 +153,27 @@ def test_scan_fold_pads_with_identity_steps():
         ssm_scan_plain(x[:, :, 0], la[:, :, 0], b[:, :, 0], c[:, :, 0], chunk=4)
 
 
-def test_ssm_scan_off_cpu_never_falls_back():
-    """On any device but the CPU the wrapper launches the kernel or raises:
-    here (no card) a meta tensor reaches the CUDA path, which refuses
-    anything that is not a CUDA tensor, with or without a gradient (the
-    kernel's forward is differentiable since its recompute backward)."""
+def test_ssm_scan_off_cpu_never_falls_back(monkeypatch):
+    """Off the CPU the wrapper never runs the plain version. A meta tensor
+    (the dry-run's stand-in) gets K3's custom-op fake: outputs of the right
+    shapes and types, no launch, with or without a gradient (the kernel's
+    forward is differentiable since its recompute backward). A CUDA tensor
+    reaches the kernel, which refuses any other."""
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(ops, "ssm_scan_plain", plain)
     ops.reset_launches()
     x = torch.empty((1, 8, 2, 5), device="meta")
     la, b = torch.empty((1, 8, 2), device="meta"), torch.empty((1, 8, 2, 4), device="meta")
-    with pytest.raises(ValueError, match="CUDA device"):
-        ops.ssm_scan(x.requires_grad_(), la, b, b, chunk=4)
-    with pytest.raises(ValueError, match="CUDA device"):
-        ops.ssm_scan(x.detach(), la, b, b, chunk=4)
+    for xx in (x.requires_grad_(), x.detach()):
+        y, h = ops.ssm_scan(xx, la, b, b, chunk=4)
+        assert y.device.type == h.device.type == "meta"
+        assert y.shape == (1, 8, 2, 5) and h.shape == (1, 2, 4, 5) and h.dtype == torch.float32
+    assert ops.LAUNCHES["ssm_scan"] == 0
+    with pytest.raises(ValueError, match="CUDA device"):  # the kernel refuses a tensor that is not on the card
+        ops.ssm_scan_cuda(torch.zeros((2, 8, 8)), torch.zeros((2, 8)), torch.zeros((2, 8, 8)),
+                          torch.zeros((2, 8, 8)), 4)
     assert ops.LAUNCHES["ssm_scan"] == 0
 
 

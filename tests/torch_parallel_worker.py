@@ -8,7 +8,12 @@ paths; the K1 wrapper on head-sharded DTensors; ``pipeline_apply`` on a (4, 2) (
 ``make_train_step`` of internlm2-1.8b cut to 2 layers (weights from
 OUT_DIR/train_in.pt); the forward loss with rules of moonshot-v1-16b-a3b-
 smoke, xlstm-1.3b-smoke and internlm2-1.8b-smoke with 6 q heads padded to
-8. Rank 0 writes every result to
+8; the sharded serve steps on (2, 4), the cache's sequence over the 4-way
+model axis (``serve``): internlm2 cut to 2 layers (prefill of 4 prompts,
+6 greedy decode steps) on the kernel path, with a row parked, over a
+sliding-window ring that wraps, and on the einsum path with a row parked
+from the start (no valid key), and the ``-smoke`` configs of xlstm, jamba
+and moonshot with a row parked. Rank 0 writes every result to
 OUT_DIR/results.pt; the test compares them with the JAX package and with
 the port in one process. Imports no JAX.
 """
@@ -30,6 +35,20 @@ TRAIN_BATCH = (8, 32)
 # forward with rules: arch (":pad6" = 6 q heads over 2 kv heads, padded to 8
 # for the 4-way model axis): sequence length
 FWD_ARCHS = {"moonshot-v1-16b-a3b-smoke": 16, "xlstm-1.3b-smoke": 8, "internlm2-1.8b-smoke:pad6": 16}
+# the serve cases: name -> (arch or "cut" for the train-step cut, sliding
+# window, decode path, the step from which row 1 is parked (None: never;
+# 0: from the first decode step)); 4 prompts of 12 tokens, a cache of 24
+# (the window's ring: 8), SERVE_STEPS greedy decode steps
+SERVE_CASES = {
+    "cut": ("cut", 0, "kernel", None),
+    "cut/parked": ("cut", 0, "kernel", 2),
+    "cut/window": ("cut", 8, "kernel", None),
+    "cut/einsum": ("cut", 0, "einsum", 0),
+    "xlstm-1.3b-smoke": ("xlstm-1.3b-smoke", 0, "kernel", 2),
+    "jamba-1.5-large-398b-smoke": ("jamba-1.5-large-398b-smoke", 0, "kernel", 2),
+    "moonshot-v1-16b-a3b-smoke": ("moonshot-v1-16b-a3b-smoke", 0, "kernel", 2),
+}
+SERVE_PROMPT, SERVE_MAX_LEN, SERVE_STEPS = (4, 12), 24, 6
 
 
 def decode_inputs(case: str):
@@ -97,6 +116,56 @@ def fwd_loss(cfg, run, params, tokens, rules=None):
         logits, aux = M.forward(cfg, run, params, b["tokens"], rules=rules)
         loss = M.lm_loss(cfg, run, logits[:, :-1], b["tokens"][:, 1:], None, aux)[0]
     return loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+
+
+def serve_setup(case: str, params=None):
+    """``(cfg, run, params, prompts, active per decode step)`` of a serve
+    case; the cut uses ``params`` (the train-step cut's weights), the smoke
+    configs fp32 weights from a seeded generator."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model as M
+
+    arch, window, impl, parked = SERVE_CASES[case]
+    if arch == "cut":
+        cfg = dataclasses.replace(train_setup()[0], sliding_window=window)
+    else:
+        cfg = dataclasses.replace(get_config(arch), param_dtype="float32", compute_dtype="float32")
+        params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    run = RunConfig(attention_impl="pallas", decode_attention_impl=impl, ssd_chunk=8)
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, SERVE_PROMPT)
+    b = SERVE_PROMPT[0]
+    active = [None if parked is None or i < parked else np.arange(b) != 1 for i in range(SERVE_STEPS)]
+    return cfg, run, params, prompts, active
+
+
+def serve(cfg, run, params, prompts, active, rules=None) -> dict:
+    """Prefill ``prompts`` and decode SERVE_STEPS greedy steps (tokens each
+    row's argmax), ``active[i]`` the mask of step i. Returns the logits and
+    tokens of every step and the whole cache (plain tensors) after the
+    prefill and after each step."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import model as M
+
+    logits, cache = make_prefill_step(cfg, run, rules, SERVE_MAX_LEN)(params, {"tokens": prompts})
+    out = {"logits": [_full(logits)], "tokens": [], "caches": [_full(cache)]}
+    step = make_serve_step(cfg, run, rules)
+    for i, act in enumerate(active):
+        tok = out["logits"][-1].argmax(-1)
+        out["tokens"].append(tok)
+        if act is None:
+            logits, cache = step(params, cache, {"tokens": tok.numpy()})
+        else:  # the serve step takes tokens only, as the reference's: a parked row goes through decode_step
+            from repro_torch.launch.steps import _to_device
+
+            b = _to_device({"tokens": tok.numpy()}, "cpu", rules)
+            logits, cache = M.decode_step(cfg, run, params, cache, b["tokens"], active=torch.as_tensor(act),
+                                          rules=rules)
+        out["logits"].append(_full(logits))
+        out["caches"].append(_full(cache))
+    return out
 
 
 def _layout(placements) -> list:
@@ -169,6 +238,28 @@ def rank_main(rank: int, out: str):
         fcfg, frun, fparams, tokens = fwd_setup(arch)
         dparams = distribute_tree(fparams, M.model_specs(fcfg, rules), mesh)
         res[f"forward/{arch}"] = fwd_loss(fcfg, frun, dparams, tokens, rules).item()
+
+    from unittest import mock
+
+    from repro_torch.models import attention as A
+
+    calls = []
+
+    def spy(*a, **k):  # K1 over the sequence shards: count the calls
+        calls.append(k.get("use_kernel", True))
+        return sharded_decode_attention(*a, **k)
+
+    cut_params = torch.load(Path(out) / "train_in.pt")["params"]  # the train step updated start's in place
+    for case in SERVE_CASES:
+        cfg, run, sparams, prompts, active = serve_setup(case, cut_params)
+        dparams = distribute_tree(sparams, M.model_specs(cfg, rules), mesh)
+        calls.clear()
+        with mock.patch.object(A, "sharded_decode_attention", spy):
+            got = serve(cfg, run, dparams, prompts, active, rules)
+        got["sharded_decode_calls"] = list(calls)
+        cache = M.init_cache(cfg, SERVE_PROMPT[0], SERVE_MAX_LEN, "cpu", rules)
+        got["placements"] = {k: _layout(t.placements) for k, t in cache.items() if not isinstance(t, dict)}
+        res[f"serve/{case}"] = got
 
     if rank == 0:
         torch.save(res, Path(out) / "results.pt")
