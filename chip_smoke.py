@@ -169,13 +169,14 @@ toolkit: ``python3 chip_smoke.py``. It
    ``model``): phase 6's 8 prompt lengths (128-1024) each prefilled alone
    by ``make_prefill_step`` (max_len 2048), the caches stacked into one
    batch-8 cache, 32 greedy ``make_serve_step`` steps, against the
-   unsharded ``prefill``/``decode_step`` on the same weights: the bf16
-   logits' largest gap (to ``LOGIT_TOL`` of the largest |logit|) and the
-   step where the streams part, identical streams and logits to 1e-4 on a
-   2-layer fp32 cut, 28 K2 launches a prefill through the wrappers'
+   unsharded ``prefill``/``decode_step`` on the same weights: every bf16
+   logit bit for bit (one rank: the same kernels on the same operands)
+   and the streams never parting, identical streams and logits to 1e-4 on
+   a 2-layer fp32 cut, 28 K2 launches a prefill through the wrappers'
    DTensor path and 28 K1 launches a step through
-   ``sharded_decode_attention``, ms per decode step and peak GiB of both,
-   and K1 and K2 timed at the path's shapes; (b) the ``-smoke`` config of
+   ``sharded_decode_attention``, ms per decode step, the device time of 3
+   more steps (``torch.profiler``, NCCL's apart) and peak GiB of both, and
+   K1 and K2 timed at the path's shapes; (b) the ``-smoke`` config of
    every arch (d_model 256, fp32; the frontends after 16 seeded features):
    a prefill and 4 decode steps sharded against unsharded, streams
    identical and logits to 1e-4 of the largest; (c) ``python -m
@@ -769,6 +770,22 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
+def k1_bound(q, k, valid) -> dict:
+    """K1's least time on the card for this call's data: q and the mask
+    read once, the fp32 output written once, and the K and V of the valid
+    keys only (no other key enters the result, though the kernel reads
+    every key); 4 D operations per (q head, valid key): the scores and the
+    weighted values."""
+    n_valid = int((valid != 0).sum())
+    b, h, d = q.shape
+    nbytes = (q.numel() * q.element_size() + valid.numel() * valid.element_size() + b * h * d * 4
+              + 2 * n_valid * k.shape[2] * d * k.element_size())
+    flops = 4 * h * d * n_valid
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations", "bytes": nbytes,
+            "flops": flops}
+
+
 def window_pairs(sq: int, window: int) -> int:
     """(query, key) pairs a causal attention of ``sq`` rows visits."""
     if not window:
@@ -894,14 +911,13 @@ def groupings(rnd, gen, card: str) -> dict:
             ends = torch.randint(128, S + 1, (b, 1), generator=gen, device=dev)
             valid = (torch.arange(S, device=dev)[None] < ends).to(torch.int32)
         mask = valid.bool()[:, None, None, :]
-        nbytes = (q.numel() + k.numel() + v.numel()) * 2 + valid.numel() * 4 + b * H * D * 4
+        bound = k1_bound(q, k, valid)
         t = {"G": G, "head_dim": D, "shape": f"q ({b},{H},{D}), k/v ({b},{S},{KH},{D}) bf16", "what": what,
              "ms": graph_ms(lambda: decode_attention_cuda(q, k, v, valid, scale=scale)),
              "plain_ms": timed_ms(lambda: decode_attention_plain(q, k, v, valid, scale=scale)),
              "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
                  q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True)),
-             "bound_ms": max(nbytes / HBM_BYTES_PER_S, 4 * b * H * S * D / BF16_FLOPS) * 1e3,
-             "bound_by": "bytes", "bytes": nbytes}
+             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "bytes": bound["bytes"]}
         rec["k1_times"].append(t)
     for G, H, KH, D, _, _, (Sq, window, what) in GROUPINGS:
         scale = D**-0.5
@@ -2403,17 +2419,15 @@ def distribution_phase(card: str) -> dict:
     for key in ("scaled_vs_one_call", "scaled_vs_plain"):
         check(errs[key] <= ATTN_SCALED_TOL[torch.float32], f"K1 sharded: {key} {errs}")
     check(bool((got[B - 1] == 0).all() and (one[B - 1] == 0).all()), "K1 sharded: the all-invalid row is exact zeros")
-    # each input read once, the fp32 output written once; 4 D operations per
-    # (q head, valid key): the scores and the weighted values
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, valid)) + B * H * D * 4
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, 4 * H * D * int(valid_b.sum()) / BF16_FLOPS * 1e3
+    bound = k1_bound(q, k, valid)
+    nbytes = bound["bytes"]
     qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     mask = valid_b[:, None, None, :]
     times = {"ms": graph_ms(sharded), "one_call_ms": graph_ms(whole),
              "plain_ms": timed_ms(lambda: decode_attention_plain(q, k, v, valid, scale=scale)),
              "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                                            enable_gqa=True)),
-             "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations", "bytes": nbytes}
+             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "bytes": nbytes}
     out["k1_sharded"] = times
     print(f"K1 sharded {n} x {step} + combine: {times['ms']:.5f} ms device; one K1 call over {S}: "
           f"{times['one_call_ms']:.5f} ms; bound {times['bound_ms']:.5f} ms by {times['bound_by']} "
@@ -2563,6 +2577,7 @@ def distribution_phase(card: str) -> dict:
 # Then the dry-run of DRYRUN_ARCHS x DRYRUN_SHAPES on the 16 x 16 mesh.
 SERVE_LENS, SERVE_MAX_LEN, SERVE_STEPS, SERVE_CUT_LAYERS = (128, 256, 384, 512, 640, 768, 896, 1024), 2048, 32, 2
 SERVE_CUT_TOL = 1e-4  # fp32 logits, sharded vs unsharded: the same kernels on one rank, summed in the same order
+SERVE_PROFILED = 3  # decode steps traced after the timed ones, for the device's share of a step
 SMOKE_SERVE, SMOKE_PREFIX, SMOKE_TOL = (4, 64, 128, 4), 16, 1e-4  # SMOKE_TOL: of the largest |logit|, fp32
 DRYRUN_ARCHS = ("qwen3-1.7b", "xlstm-1.3b", "moonshot-v1-16b-a3b")
 DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
@@ -2583,6 +2598,26 @@ def stack_caches(caches: list) -> dict:
             else cat([c[key] for c in caches], 0 if key == "pos" else 1) for key, t in caches[0].items()}
 
 
+def step_device_ms(step_once, n: int) -> dict:
+    """The device time of ``n`` more calls of ``step_once``, per call, from
+    ``torch.profiler``: every kernel, copy and fill summed, and among them
+    NCCL's; and the host's wall time under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step_once()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    attr = "device_time_total" if events and hasattr(events[0], "device_time_total") else "cuda_time_total"
+    return {"device_ms": sum(getattr(e, attr) for e in events) / 1e3 / n,
+            "nccl_ms": sum(getattr(e, attr) for e in events if "nccl" in e.key.lower()) / 1e3 / n,
+            "device_ops": sum(e.count for e in events) / n, "wall_ms_profiled": wall}
+
+
 def sharded_serve_phase(card: str) -> dict:
     """Phase 21 (right after phase 20, while the card holds nothing else;
     destroys its process group and frees everything at its end): (a)
@@ -2592,10 +2627,10 @@ def sharded_serve_phase(card: str) -> dict:
     the cache by ``cache_specs``, its sequence over ``model``) against the
     unsharded ``prefill``/``decode_step``: 28 K2 launches a prefill through
     the wrappers' DTensor path, 28 K1 launches a step through
-    ``sharded_decode_attention``; the logits' largest gap and the step where
-    the greedy streams part in bf16; identical streams and logits to 1e-4
-    on an fp32 cut; ms per step and peak; K1 and K2 timed at the path's
-    shapes; (b) the ``-smoke`` config of every arch, sharded against
+    ``sharded_decode_attention``; every bf16 logit bit for bit and the
+    streams never parting; identical streams and logits to 1e-4 on an fp32
+    cut; ms per step, the device time of a step (``torch.profiler``) and
+    peak; K1 and K2 timed at the path's shapes; (b) the ``-smoke`` config of every arch, sharded against
     unsharded; (c) ``python -m repro_torch.launch.dryrun`` in a subprocess
     (a fake process group apart from the NCCL one) on DRYRUN_ARCHS x
     DRYRUN_SHAPES at the 16 x 16 mesh."""
@@ -2639,12 +2674,13 @@ def sharded_serve_phase(card: str) -> dict:
             k1_sharded.append(1)
             return real_sharded(*a, **kw)
 
-        def serve(c, params, sharded: bool, prompt_list, steps: int, prefixes=None, max_len=SERVE_MAX_LEN) -> dict:
+        def serve(c, params, sharded: bool, prompt_list, steps: int, prefixes=None, max_len=SERVE_MAX_LEN,
+                  profiled: int = 0) -> dict:
             """Each prompt batch prefilled alone (after its prefix features
             where given), the caches stacked, ``steps`` greedy decode steps:
             the logits and tokens of every step, the launches (and the
             DTensor-path calls) of each prefill and step and in all, ms per
-            step, the peak."""
+            step, the peak; then ``profiled`` more steps' device time."""
             r = rules if sharded else None
             if sharded:
                 params = distribute_tree(params, M.model_specs(c, rules), mesh)
@@ -2686,7 +2722,10 @@ def sharded_serve_phase(card: str) -> dict:
                     out_logits.append(_full(lg).float())
                     rec["steps"].append((ops.LAUNCHES["decode_attention"], len(k1_sharded)))
                     tally()
-            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                if profiled:
+                    tok = out_logits[-1].argmax(-1)
+                    rec["device"] = step_device_ms(lambda: step(params, cache, {"tokens": tok}), profiled)
             rec["logits"], rec["tokens"] = out_logits, tokens
             return rec
 
@@ -2707,30 +2746,38 @@ def sharded_serve_phase(card: str) -> dict:
             # the weights made in the call: held here too, they would sit in
             # the sharded run's peak beside their placed copies
             runs[name] = serve(cfg, M.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16),
-                               sharded, toks, SERVE_STEPS)
+                               sharded, toks, SERVE_STEPS, profiled=SERVE_PROFILED)
             free_card()
         sh, un = runs["sharded"], runs["unsharded"]
         check(all(kk == (L, L) for kk in sh["prefill"]) and all(kk == (L, L) for kk in sh["steps"]),
               f"sharded: 28 K2 a prefill and 28 K1 a step, each through the DTensor path: {sh['prefill']}, {sh['steps']}")
         check(all(kk == (L, 0) for kk in un["prefill"]) and all(kk == (L, 0) for kk in un["steps"]),
               f"unsharded: 28 K2 a prefill and 28 K1 a step: {un['prefill']}, {un['steps']}")
+        # on one rank both sides run the same kernels on the same operands in
+        # the same order: every logit bit for bit, the streams never part (a
+        # cache slot written out of place shows here at any depth)
         cmp = compare(sh, un)
-        limit = LOGIT_TOL * max(1.0, cmp["max_abs_logit"])
-        check(all(bool(torch.isfinite(x).all()) for x in sh["logits"]) and cmp["max_abs_gap"] <= limit,
-              f"qwen3-1.7b bf16 sharded vs unsharded logits: {cmp}, limit {limit}")
-        out["qwen3"] = {"compare": cmp, "limit": limit, "launches_per_prefill": sh["prefill"][0],
+        check(all(bool(torch.isfinite(x).all()) for x in sh["logits"]) and cmp["parts_at_step"] is None
+              and all(torch.equal(x, y) for x, y in zip(sh["logits"], un["logits"])),
+              f"qwen3-1.7b bf16 sharded vs unsharded logits, bit for bit: {cmp}")
+        out["qwen3"] = {"compare": cmp, "launches_per_prefill": sh["prefill"][0],
                         "launches_per_step": sh["steps"][0],
-                        **{f"{n}_{k}": r[k] for n, r in runs.items() for k in ("ms", "peak_gib")}}
+                        **{f"{n}_{k}": r[k] for n, r in runs.items() for k in ("ms", "peak_gib", "device")}}
         print(f"qwen3-1.7b sharded serve steps on a one-rank NCCL (1, 1) mesh, {len(toks)} prompts "
               f"{SERVE_LENS[0]}-{SERVE_LENS[-1]} prefilled alone, {SERVE_STEPS} decode steps at batch 8: bf16 logits "
-              f"vs unsharded, largest gap {cmp['max_abs_gap']:.4e} (limit {limit:.4e}, largest |logit| "
-              f"{cmp['max_abs_logit']:.3f}), streams part at step {cmp['parts_at_step']}; K2 per prefill "
+              f"vs unsharded bit for bit (largest gap {cmp['max_abs_gap']:.4e}, largest |logit| "
+              f"{cmp['max_abs_logit']:.3f}), streams never part; K2 per prefill "
               f"{sh['prefill'][0][0]} (DTensor path {sh['prefill'][0][1]}), K1 per step {sh['steps'][0][0]} "
               f"(sharded_decode_attention {sh['steps'][0][1]})")
         for name, r in runs.items():
+            dv, med = r["device"], float(np.median(r["ms"]))
+            check(dv["device_ms"] > 0, f"torch.profiler recorded device time in the {name} steps: {dv}")
             print(f"qwen3-1.7b decode step {name}, batch 8: ms per step " + ", ".join(f"{x:.1f}" for x in r["ms"][:8])
-                  + f" ... median {float(np.median(r['ms'])):.2f} (first incl. warm-up); peak {r['peak_gib']:.2f} GiB "
-                  f"({card})")
+                  + f" ... median {med:.2f} (first incl. warm-up); peak {r['peak_gib']:.2f} GiB; over "
+                  f"{SERVE_PROFILED} more steps (torch.profiler) {dv['device_ms']:.3f} ms of device time a step "
+                  f"(NCCL {dv['nccl_ms']:.3f} ms, {dv['device_ops']:.0f} kernels, copies and fills), "
+                  f"{1 - dv['device_ms'] / med:.1%} of the median step the device is idle; "
+                  f"{dv['wall_ms_profiled']:.1f} ms a step under the profiler ({card})")
 
         # K1 and K2 at the sharded path's shapes: K1 over the batch-8 cache
         # of the last step (its rows valid up to their positions), K2 at the
@@ -2749,14 +2796,13 @@ def sharded_serve_phase(card: str) -> dict:
         k1_err = float((got - exp).abs().max())
         check(k1_err < BF16_TOL and scaled_err(got, exp) <= ATTN_SCALED_TOL[torch.float32],
               f"K1 at the sharded serve's shape vs plain: {k1_err}")
-        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, valid)) + 8 * H * D * 4
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, 4 * H * D * int(valid_b.sum()) / BF16_FLOPS * 1e3
+        bound = k1_bound(q, k, valid)
         mask = valid_b[:, None, None, :]
         out["k1"] = {"max_abs_err": k1_err, "ms": graph_ms(lambda: decode_attention_cuda(q, k, v, valid, scale=scale)),
                      "plain_ms": timed_ms(lambda: decode_attention_plain(q, k, v, valid, scale=scale)),
                      "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
                          q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True)),
-                     "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "bytes": bound["bytes"],
                      "launches": sum(n for n, _ in sh["steps"]), "per_step": L}
         sq = max(SERVE_LENS)
         q2 = torch.randn((1, sq, H, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -3304,8 +3350,8 @@ def main(argv=None) -> int:
     valid1 = (torch.rand(B, S, generator=gen, device=dev) > 0.3).to(torch.int32)
     mask1 = valid1.bool()[:, None, None, :]
     qs, ks, vs = q1[:, :, None], k1.transpose(1, 2), v1.transpose(1, 2)
-    k1_bytes = (q1.numel() + k1.numel() + v1.numel()) * 2 + valid1.numel() * 4 + B * H * D * 4
-    k1_flops = 4 * B * H * S * D
+    k1_b = k1_bound(q1, k1, valid1)
+    k1_bytes, k1_flops = k1_b["bytes"], k1_b["flops"]
     Sq = 1024
     q2, k2, v2 = rnd(1, Sq, H, D, dtype=torch.bfloat16), rnd(1, Sq, KH, D, dtype=torch.bfloat16), rnd(1, Sq, KH, D, dtype=torch.bfloat16)
     q2s, k2s, v2s = q2.transpose(1, 2), k2.transpose(1, 2), v2.transpose(1, 2)

@@ -92,19 +92,20 @@ def fake_mesh(shape: tuple[int, ...]):
 @contextlib.contextmanager
 def slstm_steps(limit: int | None):
     """Run only the first ``limit`` steps of each sLSTM time loop
-    (``models/ssm.py::_slstm_scan``); the later steps repeat the last h,
-    detached, so every shape stays and the cost of a repeat cancels in the
-    extrapolation. ``None``: every step."""
+    (``models/ssm.py::slstm_scan``, whose docstring states the contract a
+    stand-in keeps); the later steps repeat the last h, detached, so every
+    shape stays and the cost of a repeat cancels in the extrapolation.
+    ``None``: every step."""
     if limit is None:
         yield
         return
-    real = ssm._slstm_scan
+    real = ssm.slstm_scan
 
     def scan(cfg, rec, bias, carry, xg):
         hs, carry = real(cfg, rec, bias, carry, xg[:, :limit])
         return hs + [carry[0].detach()] * (xg.shape[1] - len(hs)), carry
 
-    with mock.patch.object(ssm, "_slstm_scan", scan):
+    with mock.patch.object(ssm, "slstm_scan", scan):
         yield
 
 

@@ -249,6 +249,14 @@ def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
     return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
 
 
+def attn_cache_layout(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """``(shape, dtype, fill)`` of one layer's ``k`` and ``v``: (B, cap, KH,
+    hd) in the compute dtype, zero."""
+    entry = ((batch, cache_capacity(cfg, max_len), cfg.num_kv_heads, cfg.head_dim_),
+             getattr(torch, cfg.compute_dtype), 0)
+    return {"k": entry, "v": entry}
+
+
 def attn_cache_axes() -> dict:
     """Logical axes of one layer's ``k`` and ``v`` (B, cap, KH, hd): the
     cache sequence shards over ``model`` (sequence-sharded flash-decode,
@@ -269,6 +277,25 @@ def _ring_positions(s: int, cap: int, start: int, length: int):
     return (s - cap) + (slots - (s - cap)) % cap
 
 
+def _local_rows_slots(t) -> tuple[int, int, int, int]:
+    """(b0, nb, s0, ns): the batch rows and cache slots of a (B, cap, ...)
+    tensor that this rank holds; the whole of a plain tensor."""
+    if not is_dtensor(t):
+        return 0, t.shape[0], 0, t.shape[1]
+    mesh, pls = t.device_mesh, t.placements
+    return (*local_range(t.shape[0], mesh, pls, 0), *local_range(t.shape[1], mesh, pls, 1))
+
+
+def _local_rows(dst, t):
+    """``t``'s rows as ``dst`` holds them: for a DTensor ``dst``, ``t`` laid
+    out by ``dst``'s batch sharding with the rest whole, as a plain
+    tensor; else ``t`` itself."""
+    if not is_dtensor(dst):
+        return t
+    pls = [pl if pl.is_shard(0) else _REPLICATE for pl in dst.placements]
+    return t.redistribute(dst.device_mesh, pls).to_local()
+
+
 def attn_fill_cache(cfg: ModelConfig, cache: dict, k, v) -> dict:
     """Write prefill K/V (B, S, KH, D) into a fresh cache, in place (ring-aware).
 
@@ -277,44 +304,30 @@ def attn_fill_cache(cfg: ModelConfig, cache: dict, k, v) -> dict:
     positions its sequence shard holds."""
     cap = cache["k"].shape[1]
     s = k.shape[1]
-    if is_dtensor(cache["k"]):
-        for name, t in (("k", k), ("v", v)):
-            dst = cache[name]
-            mesh, pls = dst.device_mesh, dst.placements
-            rows = t.redistribute(mesh, [pl if pl.is_shard(0) else _REPLICATE for pl in pls]).to_local()
-            start, length = local_range(cap, mesh, pls, 1)
-            local = dst.to_local()
-            ring = _ring_positions(s, cap, start, length)
-            if ring is not None:
-                local.copy_(rows[:, ring.to(rows.device)])
-            elif start < s:
-                n = min(s, start + length) - start
-                local[:, :n].copy_(rows[:, start:start + n])
-        return cache
-    if s >= cap:  # keep the trailing window, ring-ordered
-        # position p lands in slot p % cap
-        slots = torch.arange(s - cap, s, device=k.device) % cap
-        order = torch.argsort(slots)
-        cache["k"].copy_(k[:, s - cap:][:, order])
-        cache["v"].copy_(v[:, s - cap:][:, order])
-    else:
-        cache["k"][:, :s].copy_(k)
-        cache["v"][:, :s].copy_(v)
+    for name, t in (("k", k), ("v", v)):
+        dst = cache[name]
+        rows = _local_rows(dst, t)
+        local = dst.to_local() if is_dtensor(dst) else dst
+        _, _, start, length = _local_rows_slots(dst)
+        ring = _ring_positions(s, cap, start, length)
+        if ring is not None:  # the trailing window: position p in slot p % cap
+            local.copy_(rows[:, ring.to(rows.device)])
+        elif start < s:
+            n = min(s, start + length) - start
+            local[:, :n].copy_(rows[:, start:start + n])
     return cache
 
 
-def _write_sharded(dst, new, slot, active) -> None:
-    """The decode step's write into a DTensor cache ``dst`` (B, cap, KH, D)
-    laid out by ``attn_cache_axes``: each rank writes, on its own batch
-    rows, only where its sequence shard holds the row's slot (and the row
-    is active); elsewhere it writes the slot's old value back, as the
-    reference's elementwise select keeps every shard local. ``new`` (B, KH,
-    D) with its heads whole; ``slot`` and ``active`` whole plain tensors."""
-    mesh, pls = dst.device_mesh, dst.placements
-    b0, nb = local_range(dst.shape[0], mesh, pls, 0)
-    s0, ns = local_range(dst.shape[1], mesh, pls, 1)
-    new = new.redistribute(mesh, [pl if pl.is_shard(0) else _REPLICATE for pl in pls]).to_local()
-    local = dst.to_local()
+def _write_step(dst, new, slot, active) -> None:
+    """The decode step's write of ``new`` (B, KH, D) into the cache ``dst``
+    (B, cap, KH, D) at each row's ``slot``, in place. Each rank writes, on
+    its own batch rows, only where its sequence shard holds the row's slot
+    (and the row is active); elsewhere it writes the slot's old value back,
+    as the reference's elementwise select keeps every shard local. ``slot``
+    and ``active`` are whole plain tensors; a plain ``dst`` is one shard."""
+    b0, nb, s0, ns = _local_rows_slots(dst)
+    new = _local_rows(dst, new)
+    local = dst.to_local() if is_dtensor(dst) else dst
     at = slot[b0:b0 + nb] - s0
     own = (at >= 0) & (at < ns)
     if active is not None:
@@ -324,22 +337,23 @@ def _write_sharded(dst, new, slot, active) -> None:
     local[rows, at] = torch.where(own[:, None, None], new.to(local.dtype), local[rows, at])
 
 
-def _valid_sharded(cfg: ModelConfig, like, slot, pos, active):
-    """The (B, cap) valid mask of :func:`attn_apply_step` as a DTensor laid
-    out as the cache ``like``'s batch and sequence: each rank builds only
-    its own piece."""
-    mesh = like.device_mesh
-    pls = [pl if pl.is_shard(0) or pl.is_shard(1) else _REPLICATE for pl in like.placements]
+def _valid_mask(cfg: ModelConfig, like, slot, pos, active):
+    """The (B, cap) valid mask of :func:`attn_apply_step`: per row, slots
+    ``<= slot`` filled (full cache: monotone; ring: all once wrapped), none
+    for a parked row. For a DTensor cache ``like`` it is a DTensor laid out
+    as ``like``'s batch and sequence, each rank building only its piece."""
     b, cap = like.shape[:2]
-    b0, nb = local_range(b, mesh, pls, 0)
-    s0, ns = local_range(cap, mesh, pls, 1)
+    b0, nb, s0, ns = _local_rows_slots(like)
     idx = torch.arange(s0, s0 + ns, device=slot.device)
     valid = idx[None, :] <= slot[b0:b0 + nb, None]
     if cfg.sliding_window:
         valid |= pos[b0:b0 + nb, None] >= cap
     if active is not None:
         valid &= active[b0:b0 + nb, None]
-    return from_local(valid, mesh, pls, (b, cap))
+    if not is_dtensor(like):
+        return valid
+    pls = [pl if pl.is_shard(0) or pl.is_shard(1) else _REPLICATE for pl in like.placements]
+    return from_local(valid, like.device_mesh, pls, (b, cap))
 
 
 def attn_apply_step(
@@ -365,7 +379,7 @@ def attn_apply_step(
 
     With ``rules`` and a DTensor cache, the step's k and v are laid out
     ``("batch", None, None, None)`` as the reference's constraint sites
-    lay them, each rank writes its own shard (:func:`_write_sharded`), and
+    lay them, each rank writes its own shard (:func:`_write_step`), and
     the valid mask takes the cache's layout. K1 then runs over the
     sequence shards (``sharded_decode_attention``: K1's partials on each
     shard, three all-reduces) where the cache's sequence is sharded, or
@@ -374,43 +388,23 @@ def attn_apply_step(
     the reference's uniform spread over an all-invalid row (C3).
     """
     dt = getattr(torch, cfg.compute_dtype)
-    b = x.shape[0]
     cache_k, cache_v = cache["k"], cache["v"]
     sharded = rules is not None and is_dtensor(cache_k)
     q, k, v = _project_qkv(cfg, params, x, pos[:, None], rules)
 
     cap = cache_k.shape[1]
+    act = active
     if sharded:
         pos = whole(pos)
-    slot = pos % cap if cfg.sliding_window else pos.clamp_max(cap - 1)
-    if sharded:
+        act = None if active is None else whole(active)
         k = shard_constraint(k, rules, ("batch", None, None, None))
         v = shard_constraint(v, rules, ("batch", None, None, None))
-        act = None if active is None else whole(active)
-        _write_sharded(cache_k, k[:, 0], slot, act)
-        _write_sharded(cache_v, v[:, 0], slot, act)
-        valid = _valid_sharded(cfg, cache_k, slot, pos, act)
-        seq_axes = [name for name, pl in zip(cache_k.device_mesh.mesh_dim_names, cache_k.placements)
-                    if pl.is_shard(1)]
-    else:
-        rows = torch.arange(b, device=x.device)
-        k_new, v_new = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
-        if active is not None:
-            keep = ~active[:, None, None]
-            k_new = torch.where(keep, cache_k[rows, slot], k_new)
-            v_new = torch.where(keep, cache_v[rows, slot], v_new)
-        cache_k[rows, slot] = k_new
-        cache_v[rows, slot] = v_new
-
-        # validity, per row: slots < pos+1 filled (full cache: monotone; ring:
-        # all once wrapped) — (B, cap), the mask shape K1 consumes
-        idx = torch.arange(cap, device=x.device)
-        valid = idx[None, :] <= slot[:, None]
-        if cfg.sliding_window:
-            valid |= pos[:, None] >= cap
-        if active is not None:
-            valid &= active[:, None]
-        seq_axes = []
+    slot = pos % cap if cfg.sliding_window else pos.clamp_max(cap - 1)
+    _write_step(cache_k, k[:, 0], slot, act)
+    _write_step(cache_v, v[:, 0], slot, act)
+    valid = _valid_mask(cfg, cache_k, slot, pos, act)
+    seq_axes = [name for name, pl in zip(cache_k.device_mesh.mesh_dim_names, cache_k.placements)
+                if pl.is_shard(1)] if sharded else []
 
     scale = 1.0 / cfg.head_dim_**0.5
     impl = run.decode_attention_impl

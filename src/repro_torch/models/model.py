@@ -422,13 +422,15 @@ def _block_cache_axes(kind: str) -> dict:
     port's cache keys them."""
     if kind == "attn":
         return attn.attn_cache_axes()
-    if kind == "mamba":
-        return {"mamba": ssm.mamba_cache_axes()}
-    if kind == "mlstm":
-        return {"mlstm": ssm.mlstm_cache_axes()}
-    if kind == "slstm":
-        return {"slstm": ssm.slstm_cache_axes()}
-    raise ValueError(kind)
+    return {kind: getattr(ssm, f"{kind}_cache_axes")()}
+
+
+def _block_cache_layout(cfg: ModelConfig, kind: str, batch: int, max_len: int) -> dict:
+    """``(shape, dtype, fill)`` of one layer's cache entries of ``kind``,
+    keyed as :func:`_block_cache_axes`."""
+    if kind == "attn":
+        return attn.attn_cache_layout(cfg, batch, max_len)
+    return {kind: getattr(ssm, f"{kind}_cache_layout")(cfg, batch)}
 
 
 def _spec_tree(layout, axes, rules):
@@ -453,24 +455,23 @@ def cache_specs(cfg: ModelConfig, rules: Optional[ShardingRules], batch: int, ma
     return out
 
 
+def _stacked(layout, n: int):
+    """``layout`` with a leading dim of ``n`` layers on every shape."""
+    if isinstance(layout, dict):
+        return {k: _stacked(e, n) for k, e in layout.items()}
+    shape, dtype, fill = layout
+    return (n,) + tuple(shape), dtype, fill
+
+
 def _cache_layout(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """``(shape, dtype, fill)`` of every cache tensor, in the cache's tree
-    (no tensor is made: the dry-run counts every tensor its step makes)."""
-    counts, dt, f32 = _kind_counts(cfg), _compute_dtype(cfg), torch.float32
+    """``(shape, dtype, fill)`` of every cache tensor, in the cache's tree:
+    each block's layout stacked over the layers of its kind (no tensor is
+    made: the dry-run counts every tensor its step makes)."""
+    counts = _kind_counts(cfg)
     out = {"pos": ((batch,), torch.long, 0)}
-    if "attn" in counts:
-        shape = (counts["attn"], batch, attn.cache_capacity(cfg, max_len), cfg.num_kv_heads, cfg.head_dim_)
-        out["k"], out["v"] = (shape, dt, 0), (shape, dt, 0)
-    if "mlstm" in counts:
-        out["mlstm"] = ((counts["mlstm"], batch, cfg.num_heads, cfg.head_dim_, cfg.head_dim_ + 1), f32, 0)
-    if "slstm" in counts:
-        row = (counts["slstm"], batch, cfg.d_model)
-        out["slstm"] = {"h": (row, dt, 0), "c": (row, f32, 0), "n": (row, f32, 0), "m": (row, f32, ssm.M_INIT)}
-    if "mamba" in counts:
-        lead = (counts["mamba"], batch, cfg.conv_width - 1)
-        heads = (counts["mamba"], batch, ssm.mamba_heads(cfg), cfg.d_state, ssm.MAMBA_HEAD_DIM)
-        out["mamba"] = {"conv_x": (lead + (cfg.d_inner,), dt, 0), "conv_b": (lead + (cfg.d_state,), dt, 0),
-                        "conv_c": (lead + (cfg.d_state,), dt, 0), "ssm": (heads, f32, 0)}
+    for kind in ("attn", "mlstm", "slstm", "mamba"):
+        if kind in counts:
+            out.update(_stacked(_block_cache_layout(cfg, kind, batch, max_len), counts[kind]))
     return out
 
 

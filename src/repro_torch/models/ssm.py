@@ -190,9 +190,19 @@ def mamba_apply_full(cfg: ModelConfig, params, x, chunk=DEFAULT_CHUNK, return_st
     return (out, state) if return_state else out
 
 
+def mamba_cache_layout(cfg: ModelConfig, batch: int) -> dict:
+    """``(shape, dtype, fill)`` of one layer's Mamba state: ``conv_x`` (B,
+    W - 1, d_inner), ``conv_b``, ``conv_c`` (B, W - 1, N) in the compute
+    dtype and ``ssm`` (B, H, N, P) fp32, all zero."""
+    H, P, N = mamba_heads(cfg), MAMBA_HEAD_DIM, cfg.d_state
+    lead, dt_ = (batch, cfg.conv_width - 1), _dtype(cfg)
+    return {"conv_x": (lead + (cfg.d_inner,), dt_, 0), "conv_b": (lead + (N,), dt_, 0),
+            "conv_c": (lead + (N,), dt_, 0), "ssm": ((batch, H, N, P), torch.float32, 0)}
+
+
 def mamba_cache_axes() -> dict:
-    """Logical axes of one layer's Mamba state: ``conv_x`` (B, W - 1,
-    d_inner), ``conv_b``, ``conv_c`` (B, W - 1, N), ``ssm`` (B, H, N, P)."""
+    """Logical axes of one layer's Mamba state, as
+    :func:`mamba_cache_layout` lists it."""
     return {
         "conv_x": ("batch", None, "tp"),
         "conv_b": ("batch", None, None),
@@ -300,6 +310,12 @@ def mlstm_apply_full(cfg: ModelConfig, params, x, chunk=DEFAULT_CHUNK, return_st
     return (out, state) if return_state else out
 
 
+def mlstm_cache_layout(cfg: ModelConfig, batch: int) -> tuple:
+    """``(shape, dtype, fill)`` of one layer's mLSTM memory: (B, H, hd,
+    hd + 1) fp32, zero."""
+    return (batch, cfg.num_heads, cfg.head_dim_, cfg.head_dim_ + 1), torch.float32, 0
+
+
 def mlstm_cache_axes() -> tuple:
     """Logical axes of one layer's mLSTM memory (B, H, hd, hd + 1); the JAX
     package keeps it under ``{"state": ...}``, the port's cache holds the
@@ -390,9 +406,15 @@ def _slstm_cell(cfg, rec, bias, carry, xg):
     return h_new, c_new, n_new, m_new
 
 
-def _slstm_scan(cfg, rec, bias, carry, xg):
+def slstm_scan(cfg, rec, bias, carry, xg):
     """The time loop: ``(the h of every step, the last carry)`` from
-    ``carry`` over the steps of ``xg`` (B, S, 4, d)."""
+    ``carry`` over the steps of ``xg`` (B, S, 4, d).
+
+    Every sLSTM block's full pass calls it once, through this module's
+    global, with all S steps, and uses only its two results: a stand-in
+    of this signature that returns S h's of the right shape may replace it
+    (``launch/dryrun.py::slstm_steps`` runs the first few steps and
+    repeats the last h; ``tests/test_torch_dryrun.py`` holds the count)."""
     hs = []
     for t in range(xg.shape[1]):
         carry = _slstm_cell(cfg, rec, bias, carry, xg[:, t])
@@ -414,13 +436,18 @@ def _slstm_out(cfg, params, x, y):
     return _project_out(cfg, params, x, h)
 
 
+def slstm_cache_layout(cfg: ModelConfig, batch: int) -> dict:
+    """``(shape, dtype, fill)`` of one layer's sLSTM carry ``{"h", "c",
+    "n", "m"}``, each (B, d): h in the compute dtype, the rest fp32, all
+    zero but m at -1e30 (the reference's initial carry)."""
+    row, f32 = (batch, cfg.d_model), torch.float32
+    return {"h": (row, _dtype(cfg), 0), "c": (row, f32, 0), "n": (row, f32, 0), "m": (row, f32, M_INIT)}
+
+
 def slstm_init_cache(cfg: ModelConfig, batch: int, device) -> dict:
-    """``{"h", "c", "n", "m"}`` each (B, d): h in the compute dtype, the
-    rest fp32, m at -1e30 (the reference's initial carry)."""
-    d = cfg.d_model
-    z32 = torch.zeros((batch, d), dtype=torch.float32, device=device)
-    return {"h": torch.zeros((batch, d), dtype=_dtype(cfg), device=device),
-            "c": z32, "n": z32.clone(), "m": torch.full_like(z32, M_INIT)}
+    """The initial carry of :func:`slstm_cache_layout`."""
+    return {k: torch.full(shape, fill, dtype=dtype, device=device)
+            for k, (shape, dtype, fill) in slstm_cache_layout(cfg, batch).items()}
 
 
 def slstm_cache_axes() -> dict:
@@ -437,7 +464,7 @@ def slstm_apply_full(cfg: ModelConfig, params, x, return_state=False):
     xg = _slstm_gates_in(cfg, params, x)
     rec, bias = _slstm_recurrent(params, xg.dtype)
     init = slstm_init_cache(cfg, B, x.device)
-    hs, carry = _slstm_scan(cfg, rec, bias, tuple(init[k] for k in ("h", "c", "n", "m")), xg)
+    hs, carry = slstm_scan(cfg, rec, bias, tuple(init[k] for k in ("h", "c", "n", "m")), xg)
     out = _slstm_out(cfg, params, x, torch.stack(hs, dim=1))
     if return_state:
         return out, dict(zip(("h", "c", "n", "m"), carry))
