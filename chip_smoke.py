@@ -160,8 +160,10 @@ toolkit: ``python3 chip_smoke.py``. It
    through ``make_train_step(cfg, run, rules)`` (params and AdamW state
    placed by ``model_specs``/``opt_state_specs``, 28 K2 launches a step,
    each through the wrappers' DTensor path) against the unsharded step
-   (losses to 1e-3, ms per step, peak), and at a 2-layer fp32 cut (params
-   to 1e-4). NCCL places one rank per card, so the multi-rank behaviour is
+   (losses to 1e-3, ms per step, peak within 1 GiB), and at a 2-layer fp32
+   cut (params to 1e-4); then moonshot-v1-16b-a3b cut to 3 layers the same
+   way (the loss on each rank's own rows, MoE routing on each rank's own
+   groups). NCCL places one rank per card, so the multi-rank behaviour is
    held on gloo CPU groups by ``tests/test_torch_parallel.py``;
 21. (right after phase 20) the sharded serve steps and the dry-run: (a)
    qwen3-1.7b at full width on the one-rank NCCL (1, 1) mesh, params placed
@@ -184,8 +186,9 @@ toolkit: ``python3 chip_smoke.py``. It
    apart from the NCCL one) for qwen3-1.7b, xlstm-1.3b and
    moonshot-v1-16b-a3b at train_4k, prefill_32k and decode_32k on the
    16 x 16 mesh: each record's t_compute, t_memory, t_collective (predicted
-   from the H100 nameplate peaks), dominant term and peak bytes per device,
-   and the seconds each cell took;
+   from the H100 nameplate peaks), dominant term and peak bytes per device
+   (each below the card's memory, and beside its earlier figure), and the
+   seconds each cell took;
 22. prints one ``{"kernels": [...]}`` line with times and bounds (and the
    launches of each serve path and of training; for K1 and K2 the times at
    each head grouping, K2 and K3 also at the training shape, K3 at the
@@ -2338,6 +2341,7 @@ DIST_DECODE, DIST_SHARDS = (8, 32768, 16, 8, 128), 4
 DIST_PIPE = (4, 2, 1024)
 DIST_TRAIN_SEQ, DIST_TRAIN_STEPS, DIST_CUT_LAYERS = (2, 1024), 2, 2
 DIST_LOSS_RTOL, DIST_CUT_TOL = 1e-3, 1e-4
+DIST_PEAK_SLACK_GIB = 1.0  # a sharded step's peak over the unsharded one's, on one rank
 
 
 def _free_port() -> int:
@@ -2359,7 +2363,8 @@ def distribution_phase(card: str) -> dict:
     microbatches on a one-rank ("pod", "data") mesh against a sequential
     run; (d) qwen3-1.7b's sharded train step at full width through
     ``make_train_step(cfg, run, rules)``, params and optimizer state placed
-    by ``model_specs``/``opt_state_specs``, against the unsharded step."""
+    by ``model_specs``/``opt_state_specs``, against the unsharded step; (e)
+    the same for moonshot-v1-16b-a3b cut to MOE_TRAIN_LAYERS layers."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -2492,11 +2497,12 @@ def distribution_phase(card: str) -> dict:
         rules = rules_from_mesh(mesh)
         corpus_rng = np.random.default_rng(20)
         bt, st = DIST_TRAIN_SEQ
-        batches = [{"tokens": corpus_rng.integers(0, cfg.vocab_size, (bt, st)),
-                    "labels": corpus_rng.integers(0, cfg.vocab_size, (bt, st)),
-                    "mask": np.ones((bt, st), np.float32)} for _ in range(1 + DIST_TRAIN_STEPS)]
 
-        def run_steps(c, sharded_run: bool, steps: int):
+        def batches(vocab: int) -> list:
+            return [{"tokens": corpus_rng.integers(0, vocab, (bt, st)), "labels": corpus_rng.integers(0, vocab, (bt, st)),
+                     "mask": np.ones((bt, st), np.float32)} for _ in range(1 + DIST_TRAIN_STEPS)]
+
+        def run_steps(c, sharded_run: bool, steps: int, data: list):
             params = M.init_model(c, torch.Generator(device=dev).manual_seed(0))
             opt = adamw.init_opt_state(params)
             if sharded_run:
@@ -2518,7 +2524,7 @@ def distribution_phase(card: str) -> dict:
                     ops.reset_launches()
                     local.clear()
                     t0 = time.perf_counter()
-                    params, opt, metrics = step_fn(params, opt, batches[i])
+                    params, opt, metrics = step_fn(params, opt, data[i])
                     loss = float(metrics["loss"])
                     ms.append((time.perf_counter() - t0) * 1e3)
                     losses.append(loss)
@@ -2526,30 +2532,42 @@ def distribution_phase(card: str) -> dict:
             peak = torch.cuda.max_memory_allocated() / 2**30
             return params, {"losses": losses, "ms": ms, "k2_and_dtensor_calls": k2, "peak_gib": peak}
 
-        L = cfg.num_layers
-        # the params each run returns are dropped at once: kept, they would
-        # sit in the next run's peak
-        plain_rec = run_steps(cfg, False, 1 + DIST_TRAIN_STEPS)[1]
-        free_card()
-        shard_rec = run_steps(cfg, True, 1 + DIST_TRAIN_STEPS)[1]
-        free_card()
-        for a, b_ in zip(plain_rec["losses"], shard_rec["losses"]):
-            check(np.isfinite(a) and abs(a - b_) <= DIST_LOSS_RTOL * abs(a),
-                  f"sharded vs unsharded loss {shard_rec['losses']} vs {plain_rec['losses']}")
-        check(all(kk == (L, L) for kk in shard_rec["k2_and_dtensor_calls"]),
-              f"every K2 launch of the sharded step went through the DTensor path: {shard_rec['k2_and_dtensor_calls']}")
-        check(all(kk == (L, 0) for kk in plain_rec["k2_and_dtensor_calls"]),
-              f"the unsharded step ran K2 {plain_rec['k2_and_dtensor_calls']}")
-        out["train"] = {"unsharded": plain_rec, "sharded": shard_rec}
-        for name, r in (("unsharded", plain_rec), ("sharded (1, 1) mesh", shard_rec)):
-            print(f"qwen3-1.7b train step {name}, {bt} x {st} tokens: losses "
-                  + ", ".join(f"{x_:.5f}" for x_ in r["losses"]) + "; ms per step "
-                  + ", ".join(f"{x_:.1f}" for x_ in r["ms"]) + f" (first incl. warm-up); K2 launches and DTensor "
-                  f"calls per step {r['k2_and_dtensor_calls']}; peak {r['peak_gib']:.2f} GiB ({card})")
+        def sharded_vs_unsharded(c, name: str) -> dict:
+            """``c``'s train step unsharded, then sharded: losses within
+            DIST_LOSS_RTOL, every K2 launch of the sharded step through the
+            DTensor path, and the sharded peak within DIST_PEAK_SLACK_GIB of
+            the unsharded."""
+            L = c.num_layers
+            data = batches(c.vocab_size)
+            # the params each run returns are dropped at once: kept, they
+            # would sit in the next run's peak
+            plain_rec = run_steps(c, False, 1 + DIST_TRAIN_STEPS, data)[1]
+            free_card()
+            shard_rec = run_steps(c, True, 1 + DIST_TRAIN_STEPS, data)[1]
+            free_card()
+            for a, b_ in zip(plain_rec["losses"], shard_rec["losses"]):
+                check(np.isfinite(a) and abs(a - b_) <= DIST_LOSS_RTOL * abs(a),
+                      f"{name} sharded vs unsharded loss {shard_rec['losses']} vs {plain_rec['losses']}")
+            check(all(kk == (L, L) for kk in shard_rec["k2_and_dtensor_calls"]),
+                  f"{name}: every K2 launch of the sharded step went through the DTensor path: "
+                  f"{shard_rec['k2_and_dtensor_calls']}")
+            check(all(kk == (L, 0) for kk in plain_rec["k2_and_dtensor_calls"]),
+                  f"{name}: the unsharded step ran K2 {plain_rec['k2_and_dtensor_calls']}")
+            check(shard_rec["peak_gib"] <= plain_rec["peak_gib"] + DIST_PEAK_SLACK_GIB,
+                  f"{name}: sharded peak {shard_rec['peak_gib']:.2f} GiB against unsharded {plain_rec['peak_gib']:.2f}")
+            for side, r in (("unsharded", plain_rec), ("sharded (1, 1) mesh", shard_rec)):
+                print(f"{name} train step {side}, {bt} x {st} tokens: losses "
+                      + ", ".join(f"{x_:.5f}" for x_ in r["losses"]) + "; ms per step "
+                      + ", ".join(f"{x_:.1f}" for x_ in r["ms"]) + f" (first incl. warm-up); K2 launches and DTensor "
+                      f"calls per step {r['k2_and_dtensor_calls']}; peak {r['peak_gib']:.2f} GiB ({card})")
+            return {"unsharded": plain_rec, "sharded": shard_rec}
+
+        out["train"] = sharded_vs_unsharded(cfg, "qwen3-1.7b")
 
         cut = dataclasses.replace(cfg, num_layers=DIST_CUT_LAYERS, compute_dtype="float32")
-        p_plain, _ = run_steps(cut, False, 1)
-        p_shard, _ = run_steps(cut, True, 1)
+        data = batches(cut.vocab_size)
+        p_plain, _ = run_steps(cut, False, 1, data)
+        p_shard, _ = run_steps(cut, True, 1, data)
         cut_err = max(float((a - b_.full_tensor()).abs().max())
                       for a, b_ in zip(tree_leaves(p_plain), tree_leaves(p_shard)))
         check(cut_err < DIST_CUT_TOL, f"{DIST_CUT_LAYERS}-layer fp32 cut: sharded vs unsharded params {cut_err}")
@@ -2557,6 +2575,11 @@ def distribution_phase(card: str) -> dict:
         print(f"qwen3-1.7b cut to {DIST_CUT_LAYERS} layers, fp32, one step: params sharded vs unsharded max abs "
               f"err {cut_err:.3e} (tol {DIST_CUT_TOL})")
         del p_plain, p_shard
+        free_card()
+
+        # -- (e) the sharded train step of moonshot-v1-16b-a3b cut to 3 layers
+        mcut = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), num_layers=MOE_TRAIN_LAYERS)
+        out["train_moe"] = sharded_vs_unsharded(mcut, f"moonshot-v1-16b-a3b cut to {MOE_TRAIN_LAYERS} layers")
     finally:
         dist.destroy_process_group()
     free_card()
@@ -2581,6 +2604,18 @@ SERVE_PROFILED = 3  # decode steps traced after the timed ones, for the device's
 SMOKE_SERVE, SMOKE_PREFIX, SMOKE_TOL = (4, 64, 128, 4), 16, 1e-4  # SMOKE_TOL: of the largest |logit|, fp32
 DRYRUN_ARCHS = ("qwen3-1.7b", "xlstm-1.3b", "moonshot-v1-16b-a3b")
 DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# each cell's peak GiB per device before every rank took the loss on its own
+# rows and routed its own MoE groups (this phase on PyTorch 2.11, H100 80GB
+# HBM3); the five cells that change did not touch may grow by at most
+# DRYRUN_PEAK_GROWTH over it
+DRYRUN_EARLIER_PEAK_GIB = {
+    "qwen3-1.7b:train_4k": 705.52, "qwen3-1.7b:prefill_32k": 2.31, "qwen3-1.7b:decode_32k": 3.58,
+    "xlstm-1.3b:train_4k": 234.42, "xlstm-1.3b:prefill_32k": 4.87, "xlstm-1.3b:decode_32k": 2.15,
+    "moonshot-v1-16b-a3b:train_4k": 762.11, "moonshot-v1-16b-a3b:prefill_32k": 204.23,
+    "moonshot-v1-16b-a3b:decode_32k": 8.33}
+DRYRUN_REPAIRED = ("qwen3-1.7b:train_4k", "xlstm-1.3b:train_4k", "moonshot-v1-16b-a3b:train_4k",
+                   "moonshot-v1-16b-a3b:prefill_32k")
+DRYRUN_PEAK_GROWTH = 1.1
 
 
 def _full(t):
@@ -2633,7 +2668,8 @@ def sharded_serve_phase(card: str) -> dict:
     peak; K1 and K2 timed at the path's shapes; (b) the ``-smoke`` config of every arch, sharded against
     unsharded; (c) ``python -m repro_torch.launch.dryrun`` in a subprocess
     (a fake process group apart from the NCCL one) on DRYRUN_ARCHS x
-    DRYRUN_SHAPES at the 16 x 16 mesh."""
+    DRYRUN_SHAPES at the 16 x 16 mesh, each cell's peak per device below the
+    card's memory."""
     import torch.distributed as dist
     import torch.nn.functional as F
 
@@ -2880,19 +2916,26 @@ def sharded_serve_phase(card: str) -> dict:
                          timeout=900)
     print(res.stdout, flush=True)
     cells = {}
+    hbm_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
     for arch in DRYRUN_ARCHS:
         for sh in DRYRUN_SHAPES:
             rec = json.loads((out_dir / f"{arch}__{sh}__singlepod.json").read_text())
             check(rec["ok"], f"dry-run {arch} {sh}: {rec.get('error')} {rec.get('traceback', '')[-3000:]}")
-            cells[f"{arch}:{sh}"] = {k: rec[k] for k in ("t_compute", "t_memory", "t_memory_analytic", "t_collective",
-                                                         "dominant", "peak_bytes_per_dev", "hlo_flops_per_dev",
-                                                         "model_flops_per_dev", "useful_flop_ratio",
-                                                         "collective_bytes_per_dev", "total_s")}
+            cell = f"{arch}:{sh}"
+            cells[cell] = {k: rec[k] for k in ("t_compute", "t_memory", "t_memory_analytic", "t_collective",
+                                               "dominant", "peak_bytes_per_dev", "hlo_flops_per_dev",
+                                               "model_flops_per_dev", "useful_flop_ratio",
+                                               "collective_bytes_per_dev", "total_s")}
+            peak, earlier = rec["peak_bytes_per_dev"] / 2**30, DRYRUN_EARLIER_PEAK_GIB[cell]
             print(f"dry-run {arch} {sh} on 16 x 16 (predicted from the H100 nameplate peaks, not measured): "
                   f"t_compute {rec['t_compute']:.4e} s, t_memory {rec['t_memory']:.4e} s (analytic "
                   f"{rec['t_memory_analytic']:.4e}), t_collective {rec['t_collective']:.4e} s, dominant "
-                  f"{rec['dominant']}, peak {rec['peak_bytes_per_dev'] / 2**30:.2f} GiB per device; counted in "
+                  f"{rec['dominant']}, peak {peak:.2f} GiB per device (counted on meta tensors; before each rank's "
+                  f"own loss rows and MoE groups {earlier:.2f}; the card holds {hbm_gib:.2f}); counted in "
                   f"{rec['total_s']:.1f} s")
+            check(peak < hbm_gib, f"dry-run {cell}: {peak:.2f} GiB a device does not fit the card's {hbm_gib:.2f}")
+            if cell not in DRYRUN_REPAIRED:
+                check(peak <= DRYRUN_PEAK_GROWTH * earlier, f"dry-run {cell}: peak {peak:.2f} GiB, earlier {earlier}")
     check(res.returncode == 0, f"dry-run exited {res.returncode}: {res.stderr[-2000:]}")
     out["dryrun"] = {"cells": cells, "wall_s": time.perf_counter() - t0}
     out["phase_s"] = time.perf_counter() - t_phase

@@ -42,6 +42,7 @@ from repro_torch.parallel.sharding import (
     rules_from_mesh,
     sharded_context,
     spec_placements,
+    whole,
 )
 
 _LONG = ("tokens", "labels")  # index tensors: embedding rows, gathered logits
@@ -87,6 +88,14 @@ def make_grad_step(cfg: ModelConfig, run: RunConfig, rules: Optional[ShardingRul
 
     def loss_fn(params, batch):
         logits, aux = M.forward(cfg, run, params, batch["tokens"], batch.get("prefix_features"), rules=rules)
+        if is_dtensor(logits):
+            # sharded: the labels are shifted, not the logits (a slice of
+            # their sequence-sharded dim would gather them); the last
+            # position has no next token and is masked out
+            labels, mask = whole(batch["labels"]), whole(batch["mask"])
+            labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+            mask = torch.cat([mask[:, 1:], torch.zeros_like(mask[:, -1:])], dim=1)
+            return M.lm_loss(cfg, run, logits, labels, mask, aux)
         return M.lm_loss(cfg, run, logits[:, :-1], batch["labels"][:, 1:], batch["mask"][:, 1:], aux)
 
     def grad_step(params, batch):

@@ -70,11 +70,17 @@ from repro_torch.parallel.sharding import (
     PartitionSpec,
     ShardingRules,
     gather_sequence,
+    is_dtensor,
+    local_map,
+    local_range,
+    partial_reduce,
     pin,
     placed_full,
     replicate,
+    settle,
     shard_constraint,
     sharded_context,
+    whole,
 )
 
 FRONTEND_FEATURE_DIM = {"audio_frames": 128, "vision_patches": 1152}
@@ -503,16 +509,81 @@ def lm_loss(cfg: ModelConfig, run: RunConfig, logits: torch.Tensor, labels: torc
     """Causal-LM cross entropy + z-loss + MoE aux; labels aligned to
     logits. The cross entropy is taken from fp32 logits (logsumexp, gold
     logit gathered). Returns ``(total, metrics)`` with the reference's
-    keys: ``loss``, ``ce``, ``z_loss`` and the forward's aux metrics."""
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
-    if mask is None:
-        mask = torch.ones_like(nll)
-    denom = torch.clamp(mask.sum(), min=1.0)
-    ce = (nll * mask).sum() / denom
-    zl = run.z_loss * ((lse**2) * mask).sum() / denom
+    keys: ``loss``, ``ce``, ``z_loss`` and the forward's aux metrics.
+
+    On DTensor logits each rank takes its own (batch, sequence, vocab)
+    block (:func:`_sharded_lm_terms`) and no rank gathers the logits."""
+    if is_dtensor(logits):
+        ce, zl = _sharded_lm_terms(logits, labels, mask, run.z_loss)
+    else:
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+        nll = lse - gold
+        if mask is None:
+            mask = torch.ones_like(nll)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = (nll * mask).sum() / denom
+        zl = run.z_loss * ((lse**2) * mask).sum() / denom
     total = ce + zl + run.moe_aux_loss * aux.get("moe_aux", 0.0)
     metrics = {"loss": total, "ce": ce, "z_loss": zl, **aux}
     return total, metrics
+
+
+class _RowLogStats(torch.autograd.Function):
+    """(logsumexp, gold logit) in fp32 of each row of this rank's logits
+    block ``(..., V_local)``, its columns ``v0``.. of the vocabulary. Where
+    the mesh dims ``vocab`` split the vocabulary, the row max, the sum of
+    exponentials and the gold logit are reduced over them (the
+    vocab-parallel cross entropy). The backward stays on the block:
+    ``softmax * d_lse + one_hot * d_gold``, with no fp32 copy of the block
+    kept between the passes."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0: int, mesh, vocab):
+        lf = logits.float()
+        col = labels - v0
+        mine = (col >= 0) & (col < lf.shape[-1])
+        col = col.clamp(0, lf.shape[-1] - 1)
+        gold = torch.gather(lf, -1, col[..., None])[..., 0]
+        if vocab:
+            m = partial_reduce(lf.amax(-1), mesh, vocab, "max")
+            lse = m + partial_reduce((lf - m[..., None]).exp_().sum(-1), mesh, vocab).log()
+            gold = partial_reduce(torch.where(mine, gold, 0.0), mesh, vocab)
+        else:
+            lse = torch.logsumexp(lf, dim=-1)
+        ctx.save_for_backward(logits, col, mine, lse)
+        return lse, gold
+
+    @staticmethod
+    def backward(ctx, d_lse, d_gold):
+        logits, col, mine, lse = ctx.saved_tensors
+        grad = logits.to(torch.float32, copy=True).sub_(lse[..., None]).exp_().mul_(d_lse[..., None])
+        grad.scatter_add_(-1, col[..., None], torch.where(mine, d_gold, 0.0)[..., None])
+        return grad.to(logits.dtype), None, None, None, None
+
+
+def _sharded_lm_terms(logits, labels, mask, z_loss: float):
+    """``(ce, z-loss term)`` of DTensor logits (B, S, V), each a replicated
+    scalar DTensor: each rank takes the logsumexp and the gold logit of its
+    own block of rows and vocabulary (labels and mask, small, are made whole
+    and cut to its rows), the masked sums over its rows, and the sums are
+    reduced over the mesh dims that split the rows."""
+    logits = settle(logits)
+    mesh, pls = logits.device_mesh, logits.placements
+    names = tuple(mesh.mesh_dim_names)
+    rows = tuple(n for n, pl in zip(names, pls) if pl.is_shard() and pl.dim < 2)
+    vocab = tuple(n for n, pl in zip(names, pls) if pl.is_shard(2))
+    (b0, nb), (s0, ns), (v0, _) = (local_range(n, mesh, pls, dim) for dim, n in enumerate(logits.shape))
+    lab = whole(labels)[b0:b0 + nb, s0:s0 + ns].long()
+    msk = None if mask is None else whole(mask)[b0:b0 + nb, s0:s0 + ns]
+
+    def terms(block):
+        lse, gold = _RowLogStats.apply(block, lab, v0, mesh, vocab)
+        m = torch.ones_like(lse) if msk is None else msk
+        sums = partial_reduce(torch.stack([((lse - gold) * m).sum(), ((lse**2) * m).sum(), m.sum()]), mesh, rows)
+        denom = torch.clamp(sums[2], min=1.0)
+        return sums[0] / denom, z_loss * sums[1] / denom
+
+    # a replicated mesh dim holds the same block on each of its ranks
+    return local_map(terms, logits, out=["replicate", "replicate"])

@@ -24,11 +24,22 @@ expert index comes first. ``torch.topk`` breaks such ties otherwise, so
 the port takes the first ``k`` of a stable descending sort. The order
 picks the experts and fixes the order in which capacity positions count.
 
-With ``rules`` the expert products shard as the JAX package's do: the
-expert dim over ``model`` where E divides it (expert parallelism), else the
-slot dim (``resolve_moe_axes``). On DTensors the routing, the dispatch
-scatter and the combine gather run on whole tensors, the same on every
-rank: DTensor has no sharding rule for them.
+With ``rules`` on DTensors, each data rank routes its own groups, as the
+JAX package lets XLA keep the group dim on the batch's devices. A group
+never crosses a sequence, so the rank's batch rows (its sequences made
+whole over ``model``) hold whole groups, and its routing decisions are the
+whole path's exactly. Each rank builds its ``(E, ng_local * C, D)`` buffer,
+the global buffer's group dim split over the DP axes. The expert products
+shard as the JAX package's do: the expert dim over ``model`` where E
+divides it (expert parallelism), else the slot dim (``resolve_moe_axes``);
+each ``model`` rank takes its slice of the buffer (no communication) and
+the outputs are all-gathered back over ``model`` for the combine. The
+routing, scatter and gather run on each rank's local tensors
+(``parallel/sharding.py::local_map``): DTensor has no sharding rule for
+them. ``moe_aux`` is averaged over the data ranks (equal groups: the
+whole path's mean) and the kept pairs summed. A batch that no DP axis
+divides stays whole on every rank and is routed whole, as the reference
+routes it.
 """
 
 from __future__ import annotations
@@ -40,7 +51,15 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamDef, nrm
-from repro_torch.parallel.sharding import ShardingRules, pin, replicated_like, shard_constraint, whole
+from repro_torch.parallel.sharding import (
+    ShardingRules,
+    gather_over,
+    is_dtensor,
+    local_map,
+    partial_reduce,
+    shard_constraint,
+    split_over,
+)
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -99,6 +118,55 @@ def route(cfg: ModelConfig, params: dict, xg: torch.Tensor, inference: bool) -> 
     return Routing(probs, top_p, top_i, pos, pos < cap, sel.sum(1), cap)
 
 
+def _experts(w: dict, xe: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts on their rows: xe (E', rows, D) -> (E', rows, D),
+    one batched product over the experts per projection, the weights cast
+    to ``xe``'s dtype."""
+    dt = xe.dtype
+    h = F.silu(torch.bmm(xe, w["gate"].to(dt))) * torch.bmm(xe, w["up"].to(dt))
+    return torch.bmm(h, w["down"].to(dt))
+
+
+def _scatter(xg: torch.Tensor, row: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The expert buffer (n_rows, D): each token's copy at its pairs' rows
+    ``row`` (tokens, k), written from the tokens broadcast over the slots
+    (no (tokens, k, D) copy); a dropped pair's row is the spare last one,
+    which is cut off."""
+    tok = xg.reshape(-1, 1, xg.shape[-1])
+    xe = xg.new_zeros((n_rows + 1, tok.shape[-1]))
+    return xe.index_put_((row,), tok.expand(-1, row.shape[1], -1))[:n_rows]
+
+
+def _dispatch_combine(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor, inference: bool, experts):
+    """Route the groups ``xg`` (ng, g, D), scatter each kept pair into its
+    row of the ``(E, ng * C, D)`` buffer, run ``experts`` on it and gather
+    the pairs back, weighted by their gates. Plain tensors. Returns ``(y
+    (ng, g, D), Routing)``."""
+    ng, g, d = xg.shape
+    dt = xg.dtype
+    e, k = cfg.num_experts, cfg.experts_per_token
+    r = route(cfg, {"router": router}, xg, inference)
+    # each pair's row of the expert buffer (E, ng * C, D); a dropped pair
+    # goes to a spare last row that nothing reads
+    n_rows = e * ng * r.cap
+    grp = torch.arange(ng, device=xg.device).view(ng, 1, 1)
+    row = torch.where(r.keep, r.top_i * (ng * r.cap) + grp * r.cap + r.pos, n_rows).view(ng * g, k)
+    # the buffer is no one's but the experts': it is freed once they ran
+    ye = experts(_scatter(xg, row, n_rows).view(e, ng * r.cap, d)).reshape(n_rows, d)
+    # a dropped pair reads any row and weighs it by a gate of 0
+    out = ye[row.reshape(-1).clamp_max(n_rows - 1)].view(ng, g, k, d)
+    gates = (r.top_p * r.keep).to(dt)
+    return (out.float() * gates.float()[..., None]).sum(2).to(dt), r
+
+
+def _aux(r: Routing, g: int) -> torch.Tensor:
+    """The GShard load-balance loss of the routed groups, averaged over them."""
+    # counts over a count as the JAX package takes them: times the fp32
+    # reciprocal of the count
+    f_e = r.counts.float() * (1.0 / g)
+    return r.probs.shape[-1] * (f_e * r.probs.mean(1)).sum(-1).mean()
+
+
 def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, inference: bool = False,
               rules: Optional[ShardingRules] = None):
     """x (B, S, D) -> (y (B, S, D), {"moe_aux", "moe_drop_frac"}). S must be
@@ -110,44 +178,65 @@ def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, inference: bool =
     mean router probability), per group and averaged; ``moe_drop_frac``
     the share of (token, slot) pairs dropped.
     """
-    dt = x.dtype
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
     g = min(cfg.moe_group_size, s)
     if s % g:
         raise ValueError(f"moe_apply: sequence {s} is not a multiple of the dispatch group {g}")
-    ng = b * (s // g)
-    # on DTensors the routing, the dispatch scatter and the combine gather
-    # (sort, scatter_, cumsum, index_copy_, indexing: no DTensor sharding
-    # rules) run on the whole tensors, replicated on every rank; the
-    # experts' products run sharded
-    xg = whole(x).reshape(ng, g, d)
-    r = route(cfg, {"router": whole(params["router"])}, xg, inference)
-
-    # each pair's row of the expert buffer (E, ng * C, D); a dropped pair
-    # goes to a spare last row that nothing reads
-    n_rows = e * ng * r.cap
-    grp = torch.arange(ng, device=xg.device).view(ng, 1, 1)
-    row = torch.where(r.keep, r.top_i * (ng * r.cap) + grp * r.cap + r.pos, n_rows).reshape(-1)
-    tok = xg.reshape(ng * g, 1, d).expand(ng * g, k, d).reshape(-1, d)
-    xe = xg.new_zeros((n_rows + 1, d)).index_copy_(0, row, tok)[:n_rows].view(e, ng * r.cap, d)
-    # the expert dim takes ``model`` where E divides it, else the slots do
-    ec_axes = ("expert", "moe_tp", None)
-    xe = shard_constraint(replicated_like(xe, x), rules, ec_axes)
-    h = F.silu(torch.bmm(xe, params["gate"].to(dt))) * torch.bmm(xe, params["up"].to(dt))
-    h = shard_constraint(h, rules, ec_axes)
-    ye = whole(shard_constraint(torch.bmm(h, params["down"].to(dt)), rules, ec_axes)).view(n_rows, d)
-    # a dropped pair reads any row and weighs it by a gate of 0
-    out = ye[row.clamp_max(n_rows - 1)].view(ng, g, k, d)
-    gates = (r.top_p * r.keep).to(dt)
-    y = replicated_like((out.float() * gates.float()[..., None]).sum(2).to(dt), x)
-
-    # counts over a count as the JAX package takes them: times the fp32
-    # reciprocal of the count, so the drop share is the same bits
-    f_e = r.counts.float() * (1.0 / g)
-    aux = e * (f_e * r.probs.mean(1)).sum(-1).mean()
+    if rules is not None and is_dtensor(x):
+        return _moe_sharded(cfg, params, x, inference, rules, g)
+    y, r = _dispatch_combine(cfg, params["router"], x.reshape(b * (s // g), g, d), inference,
+                             lambda xe: _experts(params, xe))
+    # the drop share times the fp32 reciprocal of the count, as the JAX
+    # package takes it, so that it is the same bits
     dropped = 1.0 - r.keep.float().sum() * (1.0 / r.keep.numel())
-    # replicated DTensors on DTensor inputs, so that the loss's gradient
-    # comes back into the whole tensors as plain tensors
-    # y pinned: its gradient comes back replicated before the view into groups
-    return pin(y.reshape(b, s, d)), {"moe_aux": replicated_like(aux, x), "moe_drop_frac": replicated_like(dropped, x)}
+    return y.reshape(b, s, d), {"moe_aux": _aux(r, g), "moe_drop_frac": dropped}
+
+
+def _moe_sharded(cfg: ModelConfig, params: dict, x, inference: bool, rules: ShardingRules, g: int):
+    """:func:`moe_apply` on DTensors, each data rank routing its own groups
+    (see the module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    b, s, d = x.shape
+    k = cfg.experts_per_token
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    # each data rank's own batch rows, whole sequences: whole groups
+    x = shard_constraint(x, rules, ("batch", None, None))
+    rows = tuple(n for n, pl in zip(names, x.placements) if pl.is_shard(0))
+    # a replicated weight used for this rank's rows only: its gradient is a term
+    on_rows = [Partial() if n in rows else Replicate() for n in names]
+    ep = "model" in names and params["gate"].placements[names.index("model")].is_shard(0)
+    # the experts gathered over the DP dims (fsdp); over model their own
+    # slice under expert parallelism, else whole (each rank takes its slots)
+    w_at = [pl if n == "model" else Replicate() for n, pl in zip(names, params["gate"].placements)]
+    # the experts' gradients: each model rank's own experts, or a term (its slots)
+    w_grad = [(Shard(0) if ep else Partial()) if n == "model" else pl for n, pl in zip(names, on_rows)]
+    dt = x.dtype
+    ws = [params[n].to(dt).redistribute(mesh, w_at) for n in ("gate", "up", "down")]
+
+    def local(xl, router, gate, up, down):
+        w = {"gate": gate, "up": up, "down": down}
+
+        def experts(xe):
+            """The experts over this data row's buffer, the same on each rank
+            of ``model``: each rank runs its experts (or its slots) and the
+            outputs are gathered back whole over ``model``."""
+            if "model" not in names:
+                return _experts(w, xe)
+            cut = 0 if ep else 1
+            return gather_over(_experts(w, split_over(xe, mesh, "model", cut)), mesh, "model", cut, xe.shape[cut])
+
+        b_l = xl.shape[0]
+        y, r = _dispatch_combine(cfg, router, xl.reshape(b_l * (s // g), g, d), inference, experts)
+        # the groups are equal in size: the mean of the ranks' means is the
+        # whole mean, and the kept pairs' count adds up exactly
+        aux = partial_reduce(_aux(r, g), mesh, rows, "mean")
+        kept = partial_reduce(r.keep.float().sum(), mesh, rows)
+        dropped = 1.0 - kept * (1.0 / (b * s * k))
+        return y.reshape(b_l, s, d), aux, dropped
+
+    y, aux, dropped = local_map(local, x, params["router"].redistribute(mesh, [Replicate()] * mesh.ndim), *ws,
+                                grads=[None, on_rows, w_grad, w_grad, w_grad],
+                                out=[(x.placements, (b, s, d)), "replicate", "replicate"])
+    return y, {"moe_aux": aux, "moe_drop_frac": dropped}

@@ -337,6 +337,97 @@ def from_local(local: torch.Tensor, mesh, placements, shape):
                               stride=tuple(reversed(stride)))
 
 
+class _AllReduce(torch.autograd.Function):
+    """``t`` reduced by ``op`` over the groups of the mesh dims ``dims``, in
+    turn. The gradient passes unchanged: every rank holds the reduced value
+    and, after it, the whole of its gradient (the replicated convention of
+    DTensor's own redistributions), which is each rank's term's gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims, op):
+        from torch.distributed import _functional_collectives as funcol
+
+        for dim in dims:
+            t = funcol.all_reduce(t, op, (mesh, dim))
+            t = t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None, None
+
+
+def partial_reduce(t: torch.Tensor, mesh, dims: Sequence[str], op: str = "sum") -> torch.Tensor:
+    """The plain tensor ``t``, each rank's term of a sum (``op`` "sum"), a
+    mean ("mean", of equal terms' counts) or a max ("max", no gradient) over
+    the mesh dims named ``dims``, reduced: every rank of those dims gets the
+    result. The gradient of each rank's term is the result's gradient
+    (times 1/n for a mean of n terms)."""
+    idx = [tuple(mesh.mesh_dim_names).index(name) for name in dims]
+    if not idx:
+        return t
+    out = _AllReduce.apply(t, mesh, idx, "max" if op == "max" else "sum")
+    if op == "mean":
+        n = 1
+        for i in idx:
+            n *= mesh.size(i)
+        out = out / n
+    return out
+
+
+def local_map(fn, *args, out, grads=None):
+    """``fn`` on each rank's own shards, with no communication in or out.
+    Each DTensor of ``args`` is passed as its local tensor (``to_local``),
+    its gradient laid out as the DTensor or as ``grads[i]`` where that is
+    given (``Partial`` over the mesh dims where each rank uses a replicated
+    argument for its own rows only: its gradient there is a term of the
+    whole); any other argument as it is. ``out`` states each of ``fn``'s
+    results: ``(placements, global shape)`` makes it a DTensor of this
+    rank's shard (``from_local``, contiguous), ``"replicate"`` a DTensor
+    replicated on the mesh (a scalar ``fn`` reduced with
+    :func:`partial_reduce`). DTensor lowers no op of ``fn``: no view of a
+    sharded dim, which PyTorch 2.11's DTensor refuses, can arise."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    grads = grads or [None] * len(args)
+    local = [a.to_local(grad_placements=g) if is_dtensor(a) else a for a, g in zip(args, grads)]
+    res = fn(*local)
+    single = not isinstance(res, tuple)
+    res = (res,) if single else res
+    assert len(res) == len(out), f"local_map: {len(res)} results, {len(out)} layouts"
+    placed = tuple(
+        from_local(r, mesh, [Replicate()] * mesh.ndim, r.shape) if spec == "replicate"
+        else from_local(r, mesh, spec[0], spec[1]) for r, spec in zip(res, out))
+    return placed[0] if single else placed
+
+
+def gather_over(t: torch.Tensor, mesh, name: str, dim: int, size: int) -> torch.Tensor:
+    """The plain tensor ``t``, this rank's piece along ``dim`` (as
+    :func:`split_over` cuts it) of a tensor of length ``size`` there that
+    every rank of mesh dim ``name`` needs whole: the whole, all-gathered
+    over that dim. Its gradient, whole and the same on every rank of the
+    dim, comes back as this rank's piece."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sub = mesh[name]
+    shape = list(t.shape)
+    shape[dim] = size
+    return from_local(t, sub, [Shard(dim)], shape).redistribute(sub, [Replicate()]).to_local()
+
+
+def split_over(t: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
+    """This rank's piece along ``dim`` over mesh dim ``name`` (as
+    ``torch.chunk`` cuts it) of the plain tensor ``t``, which every rank of
+    that dim holds whole and the same; no communication. The pieces'
+    gradients are gathered: ``t``'s gradient comes back whole and the same
+    on every rank of the dim."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    sub = mesh[name]
+    return DTensor.from_local(t, sub, [Replicate()], run_check=False).redistribute(sub, [Shard(dim)]).to_local()
+
+
 def placed_full(shape, fill: float, dtype, device, mesh, spec: PartitionSpec):
     """A DTensor of ``shape`` laid out by ``spec`` whose every element is
     ``fill``: each rank makes only its own piece (no communication, and no
@@ -345,13 +436,3 @@ def placed_full(shape, fill: float, dtype, device, mesh, spec: PartitionSpec):
     pls = spec_placements(mesh, spec)
     local = [local_range(n, mesh, pls, d)[1] for d, n in enumerate(shape)]
     return from_local(torch.full(local, fill, dtype=dtype, device=device), mesh, pls, shape)
-
-
-def replicated_like(t: torch.Tensor, like):
-    """The plain whole tensor ``t`` as a DTensor replicated on ``like``'s
-    mesh where ``like`` is a DTensor, else ``t``."""
-    if not isinstance(like, torch.Tensor) or not is_dtensor(like):
-        return t
-    from torch.distributed.tensor import DTensor, Replicate
-
-    return DTensor.from_local(t, like.device_mesh, [Replicate()] * like.device_mesh.ndim, run_check=False)

@@ -11,8 +11,11 @@ counted once per step (the reference's analytic correction is not added
 on top), and the qwen3 prefill cell's counted FLOPs are held against the
 reference's ``hlo_flops_per_dev`` for the same cell (its dry-run run here
 with its mesh's axes made ``Auto``, which jax 0.9's ``make_mesh`` no
-longer defaults to). Every run is a subprocess: the fake process group is
-global to a process.
+longer defaults to). Two cells widened where the loss and the MoE
+dispatch cost memory (a vocabulary of 32768; MoE at d_model 512 with 8
+experts) hold the port's peak per device to at most twice the
+reference's ``memory_analysis()`` peak. Every run is a subprocess: the
+fake process group is global to a process.
 """
 
 import json
@@ -205,3 +208,110 @@ def test_run_config_defaults_take_the_kernel_paths():
     run = dryrun.build_run(dryrun.parse_args([]), "qwen3-1.7b")
     assert (run.attention_impl, run.decode_attention_impl, run.remat, run.fsdp) == ("pallas", "kernel", "full", True)
     assert isinstance(run, RunConfig)
+
+
+# Cells widened where a sharded step's memory goes: the loss over a larger
+# vocabulary, and the MoE dispatch at a wider model with more experts.
+# Each package runs them at its CLI's defaults (the port's: K2, remat
+# "full"; the reference's: chunked attention of 1024, remat "full").
+PARITY_CELLS = {
+    "qwen3-1.7b-smoke:train_4k": {"vocab_size": 32768},
+    "moonshot-v1-16b-a3b-smoke:prefill_32k": {"d_model": 512, "moe_d_ff": 512, "num_experts": 8,
+                                              "experts_per_token": 2},
+}
+# the same cells unmodified: their peaks before each rank computed its own
+# loss and routed its own groups (GiB, rounded up: this counter on the
+# tree before that change)
+UNMODIFIED_PEAK_GIB = {"qwen3-1.7b-smoke:train_4k": 32.6614, "moonshot-v1-16b-a3b-smoke:prefill_32k": 2.6982}
+
+_PORT_CELLS = (
+    "import json, sys\n"
+    "from pathlib import Path\n"
+    "from repro_torch.launch import dryrun\n"
+    "cells, out = json.loads(sys.argv[1]), Path(sys.argv[2])\n"
+    "mesh = dryrun.fake_mesh((2, 4))\n"
+    "for cell, over, tag in cells:\n"
+    "    arch, shape = cell.split(':')\n"
+    "    rec = dryrun.run_cell(arch, shape, mesh, dryrun.build_run(dryrun.parse_args([]), arch), tag, out, "
+    "cfg_overrides=over)\n"
+    "    assert rec['ok'], rec.get('traceback')\n"
+)
+_REFERENCE_CELLS = (
+    "import json, sys, types\n"
+    "from pathlib import Path\n"
+    "import jax\n"
+    "from jax.sharding import AxisType\n"
+    "make = jax.make_mesh\n"
+    "jax.make_mesh = lambda shape, axes, **kw: make(shape, axes, axis_types=(AxisType.Auto,) * len(axes))\n"
+    "from repro.launch import dryrun\n"
+    "from repro.launch.mesh import parse_mesh_arg\n"
+    "cells, out = json.loads(sys.argv[1]), Path(sys.argv[2])\n"
+    "# the CLI's defaults (src/repro/launch/dryrun.py, main)\n"
+    "args = types.SimpleNamespace(no_fsdp=False, no_sp=False, remat='full', attention_impl='chunked', "
+    "attention_chunk=1024, grad_accum=1, pad_heads=0, opt_dtype='float32')\n"
+    "mesh = parse_mesh_arg('2x4')\n"
+    "for cell, over, tag in cells:\n"
+    "    arch, shape = cell.split(':')\n"
+    "    rec = dryrun.run_cell(arch, shape, mesh, dryrun.build_run(args, arch), tag, out, probes=False, "
+    "cfg_overrides=over)\n"
+    "    assert rec['ok'], rec.get('traceback')\n"
+)
+
+
+@pytest.fixture(scope="module")
+def peaks(tmp_path_factory):
+    """Both packages' records of the widened cells (and the port's of the
+    unmodified ones): ``{cell: (port, reference or None)}``, the
+    unmodified port records under ``"unmodified"``."""
+    tmp = tmp_path_factory.mktemp("peaks")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
+               REPRO_DRYRUN_DEVICES="8")
+    widened = [(cell, over, "over") for cell, over in PARITY_CELLS.items()]
+    cells = widened + [(cell, None, "2x4") for cell in UNMODIFIED_PEAK_GIB]
+    ref = None
+    if jax is not None:  # the reference's compiles run while the port counts
+        proc = subprocess.Popen([sys.executable, "-c", _REFERENCE_CELLS, json.dumps(widened), str(tmp / "ref")],
+                                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        res = subprocess.run([sys.executable, "-c", _PORT_CELLS, json.dumps(cells), str(tmp / "port")], env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-3000:]
+        if jax is not None:
+            out, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, out[-2000:] + err[-3000:]
+            ref = {cell: json.loads((tmp / "ref" / f"{cell.replace(':', '__')}__over.json").read_text())
+                   for cell in PARITY_CELLS}
+    finally:
+        if jax is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    def port(cell, tag):
+        return json.loads((tmp / "port" / f"{cell.replace(':', '__')}__{tag}.json").read_text())
+
+    return {"over": {cell: port(cell, "over") for cell in PARITY_CELLS},
+            "unmodified": {cell: port(cell, "2x4") for cell in UNMODIFIED_PEAK_GIB}, "ref": ref}
+
+
+@pytest.mark.parametrize("cell", list(PARITY_CELLS))
+def test_peak_per_device_within_twice_the_reference(peaks, cell):
+    """The port's peak per device at most twice the reference's: each rank
+    takes the loss on its own rows and routes its own groups, as the
+    reference's compiled step does. Before, the loss gathered the global
+    fp32 logits on every rank (320.10 against 48.14 GiB) and the routing
+    ran on the whole tokens (20.25 against 6.45 GiB). The factor 2 leaves
+    room for what an eager step holds that XLA's fusion does not (fp32
+    copies of a block, unfused temporaries)."""
+    if jax is None:
+        pytest.skip("JAX is not installed: the reference side of this test is missing")
+    got, exp = peaks["over"][cell], peaks["ref"][cell]
+    assert got["ok"] and exp["ok"]
+    assert got["peak_bytes_per_dev"] <= 2 * exp["peak_bytes_per_dev"], (got["peak_bytes_per_dev"] / 2**30,
+                                                                         exp["peak_bytes_per_dev"] / 2**30)
+
+
+@pytest.mark.parametrize("cell", list(UNMODIFIED_PEAK_GIB))
+def test_unmodified_smoke_peak_no_higher(peaks, cell):
+    """The unmodified cells' peaks are no higher than before the change."""
+    rec = peaks["unmodified"][cell]
+    assert rec["ok"] and rec["peak_bytes_per_dev"] / 2**30 <= UNMODIFIED_PEAK_GIB[cell]

@@ -32,7 +32,19 @@ check; the JAX references are computed here while it runs:
   bit; a sliding-window ring that wraps; the einsum path's all-invalid
   row spread uniformly as the reference's (C3); and xlstm-, jamba- and
   moonshot-smoke decoding with rules as without, parked rows' states
-  left bit for bit.
+  left bit for bit;
+* the sharded ``lm_loss`` on (2, 4), the logits' sequence over ``model``
+  (sequence parallelism) and their vocabulary over it (without), labels
+  in every vocab shard and two positions masked: loss, ce and z-loss
+  within 1e-6 (relative) of the port's one-process ``lm_loss`` and the JAX
+  package's, d(logits) within 1e-5 of the largest;
+* moonshot-v1-16b-a3b-smoke's ``moe_apply`` with rules on (2, 4), each
+  data rank routing its own groups (training, inference, and 6 experts
+  that the model axis does not divide, at a capacity factor that drops
+  pairs): every rank's experts, queue positions and keep masks equal to
+  the one-process ``route``'s of its groups; y, ``moe_aux`` and
+  ``moe_drop_frac`` within 1e-6 of the largest |y|, the gradients of x and
+  of each weight within 1e-5 of their largest.
 
 In one process: each sequence shard's K1 partials against the JAX
 package's ``decode_attention(..., return_partials=True, interpret=True)``,
@@ -51,6 +63,7 @@ import torch
 
 import torch_parallel_worker as W
 from repro_torch import bridge
+from repro_torch.configs.base import RunConfig as PortRunConfig
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as M
@@ -114,6 +127,23 @@ def _jax_train_start():
     return jcfg, jparams, jopt, port
 
 
+def _one_process_losses() -> dict:
+    """``lm_loss`` of the loss case in one process, the port's and the JAX
+    package's: the metrics and d(logits) of each."""
+    logits, labels, mask = W.loss_inputs()
+    lg = torch.from_numpy(logits).requires_grad_()
+    total, metrics = M.lm_loss(W.train_setup()[0], PortRunConfig(), lg, torch.from_numpy(labels),
+                               torch.from_numpy(mask), {})
+    (grad,) = torch.autograd.grad(total, [lg])
+    port = ({k: v.item() for k, v in metrics.items()}, grad.numpy())
+
+    def loss(x):
+        return JM.lm_loss(None, JaxRunConfig(), x, jnp.asarray(labels), jnp.asarray(mask), {})
+
+    (_, jmetrics), jgrad = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(logits))
+    return {"port": port, "jax": ({k: float(v) for k, v in jmetrics.items()}, np.asarray(jgrad))}
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Start the 8 ranks, compute the references while they run, and return
@@ -143,6 +173,10 @@ def ranks(tmp_path_factory):
         for arch in W.FWD_ARCHS:
             fcfg, frun, fparams, tokens = W.fwd_setup(arch)
             ref[f"forward/{arch}"] = W.fwd_loss(fcfg, frun, fparams, tokens).item()
+        ref["loss"] = _one_process_losses()
+        for case in W.MOE_CASES:
+            _, mparams, x, w = W.moe_setup(case)
+            ref[f"moe/{case}"] = W.moe_run(case, mparams, x, w)
         cut_params = bridge.params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
         for case in W.SERVE_CASES:
             ref[f"serve/{case}"] = W.serve(*W.serve_setup(case, cut_params))
@@ -306,6 +340,58 @@ def test_sharded_serve_parked_row_untouched(ranks, case):
     before, after = got["caches"][parked], got["caches"][-1]
     assert all(torch.equal(a, b) for a, b in zip(_rows(before, 1), _rows(after, 1)))
     assert not all(torch.equal(a, b) for a, b in zip(_rows(before, 0), _rows(after, 0)))
+
+
+@pytest.mark.parametrize("sp", [True, False], ids=["sequence_on_model", "vocab_on_model"])
+@pytest.mark.parametrize("against", ["port", "jax"])
+def test_sharded_lm_loss_matches_one_process(ranks, sp, against):
+    """Each rank takes its own (batch, sequence, vocab) block; the row
+    statistics are reduced over the vocab's mesh dim where it is split,
+    the masked sums over the rows' dims."""
+    res, ref = ranks
+    got = res[f"loss/sp={sp}"]
+    assert got["layout"] == ([0, 1] if sp else [0, 2])  # batch over data; sequence or vocab over model
+    metrics, grad = ref["loss"][against]
+    for key in ("loss", "ce", "z_loss"):
+        assert abs(got["metrics"][key] - metrics[key]) <= 1e-6 * abs(metrics[key]), (key, got["metrics"], metrics)
+    assert metrics["z_loss"] > 0
+    err = np.abs(got["grad"].numpy() - grad).max()
+    assert err <= 1e-5 * np.abs(grad).max(), err
+
+
+@pytest.mark.parametrize("case", list(W.MOE_CASES))
+def test_sharded_moe_routes_each_ranks_own_groups(ranks, case):
+    """Every rank routed the groups of its data rank's batch rows: experts,
+    queue positions, keep masks and capacity exactly the one-process
+    routing's of those groups (a group never crosses a sequence)."""
+    res, ref = ranks
+    (top_i, pos, keep, cap), = ref[f"moe/{case}"]["routing"]
+    per_rank = top_i.shape[0] // 2  # groups a data rank holds
+    seen = set()
+    for (data, model), routing in res[f"moe/{case}"]["routing"]:
+        (r_i, r_pos, r_keep, r_cap), = routing
+        mine = slice(data * per_rank, (data + 1) * per_rank)
+        assert r_cap == cap
+        assert torch.equal(r_i, top_i[mine]) and torch.equal(r_pos, pos[mine]) and torch.equal(r_keep, keep[mine])
+        seen.add((data, model))
+    assert len(seen) == W.WORLD
+    if case == "train/e6":
+        assert not keep.all()  # the capacity factor drops pairs
+
+
+@pytest.mark.parametrize("case", list(W.MOE_CASES))
+def test_sharded_moe_matches_one_process(ranks, case):
+    """y, the aux metrics and the gradients of x and of every weight, with
+    the experts over ``model`` (4 experts) or their slots (6)."""
+    res, ref = ranks
+    got, exp = res[f"moe/{case}"], ref[f"moe/{case}"]
+    assert got["expert_layout"] == ([1, 0] if case != "train/e6" else [1, "R"])  # fsdp over data; experts over model
+    scale = exp["y"].abs().max().item()
+    assert (got["y"] - exp["y"]).abs().max().item() <= 1e-6 * scale
+    for key in ("moe_aux", "moe_drop_frac"):
+        assert abs(got["aux"][key] - exp["aux"][key]) <= 1e-6 * scale, (key, got["aux"], exp["aux"])
+    for a, b in zip(got["grads"], exp["grads"]):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
 
 
 # --- one process ------------------------------------------------------------------

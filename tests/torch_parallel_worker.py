@@ -13,7 +13,11 @@ model axis (``serve``): internlm2 cut to 2 layers (prefill of 4 prompts,
 6 greedy decode steps) on the kernel path, with a row parked, over a
 sliding-window ring that wraps, and on the einsum path with a row parked
 from the start (no valid key), and the ``-smoke`` configs of xlstm, jamba
-and moonshot with a row parked. Rank 0 writes every result to
+and moonshot with a row parked; the sharded ``lm_loss`` with the
+sequence over ``model`` and with the vocabulary over it (``loss``), and
+moonshot-v1-16b-a3b-smoke's ``moe_apply`` with rules, each data rank
+routing its own groups (``moe``: training, inference, and 6 experts that
+the 4-way model axis does not divide). Rank 0 writes every result to
 OUT_DIR/results.pt; the test compares them with the JAX package and with
 the port in one process. Imports no JAX.
 """
@@ -49,6 +53,16 @@ SERVE_CASES = {
     "moonshot-v1-16b-a3b-smoke": ("moonshot-v1-16b-a3b-smoke", 0, "kernel", 2),
 }
 SERVE_PROMPT, SERVE_MAX_LEN, SERVE_STEPS = (4, 12), 24, 6
+# the sharded loss: logits (B, S, V) laid out ("batch", "sp", "tp"), so the
+# sequence over model with sequence parallelism and the vocabulary without
+LOSS_SHAPE = (8, 16, 64)
+# the sharded MoE of moonshot-v1-16b-a3b-smoke in fp32, dispatch groups of
+# 64: case -> (inference, x's (B, S), config overrides). "train/e6": 6
+# experts, which the 4-way model axis does not divide, so each rank takes
+# its slots (3 groups a data rank, 11 slots an expert: 33 rows, cut
+# unevenly), at a capacity factor that drops pairs
+MOE_CASES = {"train": (False, (8, 128), {}), "inference": (True, (8, 128), {}),
+             "train/e6": (False, (6, 64), {"num_experts": 6, "moe_capacity_factor": 0.5})}
 
 
 def decode_inputs(case: str):
@@ -89,6 +103,64 @@ def train_setup():
     cfg = get_config("internlm2-1.8b").reduced(num_layers=2, d_model=64, vocab_size=64,
                                                param_dtype="float32", compute_dtype="float32")
     return cfg, RunConfig(remat="none", attention_impl="pallas", z_loss=0.0)
+
+
+def loss_inputs():
+    """fp32 logits, labels in every one of the 4 vocab shards, and a mask
+    with two positions masked out."""
+    B, S, V = LOSS_SHAPE
+    rng = np.random.default_rng(5)
+    logits = (rng.standard_normal((B, S, V)) * 3).astype(np.float32)
+    labels = rng.integers(0, V, (B, S))
+    labels[0, :4] = [3, 17, 40, 63]
+    mask = np.ones((B, S), np.float32)
+    mask[1, 5] = mask[6, S - 1] = 0.0
+    return logits, labels, mask
+
+
+def moe_setup(case: str):
+    """``(cfg, params, x, w)`` of a MoE case: the first layer's MoE weights
+    of a seeded fp32 model, x, and the weights ``w`` of the test loss
+    ``(y * w).sum() + moe_aux``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    _, shape, over = MOE_CASES[case]
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b-smoke"), param_dtype="float32",
+                              compute_dtype="float32", **over)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0))["layers"][0]["moe"]
+    rng = np.random.default_rng(6)
+    x, w = (torch.from_numpy(rng.standard_normal((*shape, cfg.d_model)).astype(np.float32)) for _ in range(2))
+    return cfg, params, x, w
+
+
+def moe_run(case: str, params, x, w, rules=None) -> dict:
+    """``moe_apply`` of a MoE case (with ``rules`` on DTensors ``params``
+    and ``x``): y, the metrics, the gradients of x and of every weight
+    (plain tensors), and the routing each call of ``route`` made."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    from repro_torch.parallel.sharding import sharded_context
+
+    cfg, _, _, _ = moe_setup(case)
+    seen, real = [], moe.route
+
+    def spy(*a, **k):
+        r = real(*a, **k)
+        seen.append(r)
+        return r
+
+    live = [t.detach().requires_grad_() for t in [x, *tree_leaves(params)]]
+    with mock.patch.object(moe, "route", spy), torch.enable_grad(), sharded_context(rules):
+        y, aux = moe.moe_apply(cfg, tree_unflatten(params, live[1:]), live[0], MOE_CASES[case][0], rules)
+        grads = torch.autograd.grad((y * w).sum() + aux["moe_aux"], live)
+    return {"y": _full(y.detach()), "aux": {k: _full(v.detach()).item() for k, v in aux.items()},
+            "grads": [_full(g) for g in grads],
+            "routing": [(r.top_i, r.pos, r.keep, r.cap) for r in seen]}
 
 
 def fwd_setup(arch: str):
@@ -190,7 +262,7 @@ def rank_main(rank: int, out: str):
     from repro_torch.optim import adamw
     from repro_torch.parallel.flash_decode import sharded_decode_attention
     from repro_torch.parallel.pipeline import pipeline_apply
-    from repro_torch.parallel.sharding import rules_from_mesh
+    from repro_torch.parallel.sharding import rules_from_mesh, sharded_context
 
     res = {}
     mesh = make_mesh((2, 4), device="cpu")
@@ -260,6 +332,32 @@ def rank_main(rank: int, out: str):
         cache = M.init_cache(cfg, SERVE_PROMPT[0], SERVE_MAX_LEN, "cpu", rules)
         got["placements"] = {k: _layout(t.placements) for k, t in cache.items() if not isinstance(t, dict)}
         res[f"serve/{case}"] = got
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import moe
+    from repro_torch.models.common import build_specs
+
+    logits, labels, mask = (torch.from_numpy(a) for a in loss_inputs())
+    for sp in (True, False):
+        lrules = rules_from_mesh(mesh, sequence_parallel=sp)
+        dl = distribute_tree(logits, lrules.spec(("batch", "sp", "tp"), logits.shape), mesh).requires_grad_()
+        dlab, dmask = (distribute_tree(t, lrules.spec(("batch", None), t.shape), mesh) for t in (labels, mask))
+        with sharded_context(lrules):
+            total, metrics = M.lm_loss(cfg, RunConfig(), dl, dlab, dmask, {})
+            (grad,) = torch.autograd.grad(total, [dl])
+        res[f"loss/sp={sp}"] = {"metrics": {k: _full(v).item() for k, v in metrics.items()},
+                                "grad": grad.full_tensor(), "layout": _layout(dl.placements)}
+
+    for case in MOE_CASES:
+        mcfg, mparams, x, w = moe_setup(case)
+        dparams = distribute_tree(mparams, build_specs(moe.moe_defs(mcfg), rules), mesh)
+        got = moe_run(case, dparams, distribute_tree(x, rules.spec(("batch", "sp", None), x.shape), mesh), w, rules)
+        # every rank's own routing, with its (data, model) coordinate
+        ranks = [None] * WORLD
+        dist.all_gather_object(ranks, (tuple(mesh.get_coordinate()), got.pop("routing")))
+        got["routing"] = ranks
+        got["expert_layout"] = _layout(dparams["gate"].placements)
+        res[f"moe/{case}"] = got
 
     if rank == 0:
         torch.save(res, Path(out) / "results.pt")
