@@ -164,7 +164,8 @@ toolkit: ``python3 chip_smoke.py``. It
    cut (params to 1e-4); then moonshot-v1-16b-a3b cut to 3 layers the same
    way (the loss on each rank's own rows, MoE routing on each rank's own
    groups). NCCL places one rank per card, so the multi-rank behaviour is
-   held on gloo CPU groups by ``tests/test_torch_parallel.py``;
+   held across four cards by ``scripts/multicard_smoke.py`` (PERF.md's
+   4-card figures) and on gloo CPU groups by ``tests/test_torch_parallel.py``;
 21. (right after phase 20) the sharded serve steps and the dry-run: (a)
    qwen3-1.7b at full width on the one-rank NCCL (1, 1) mesh, params placed
    by ``model_specs``, the cache by ``cache_specs`` (its sequence over
@@ -2459,8 +2460,9 @@ def distribution_phase(card: str) -> dict:
                               "mesh": list(mesh.mesh_dim_names)}
         print(f"sharded_decode_attention on a one-rank NCCL (1, 1) mesh: max abs err vs one K1 call {err:.3e}, "
               f"{over:.3e} past the rounding to bf16 (tol {FP32_TOL}), K1 launches {launches['decode_attention']}")
-        print("NCCL places one rank per card: the multi-rank combine, pipeline and sharded train step are held "
-              "on gloo CPU groups of 8 ranks by tests/test_torch_parallel.py")
+        print("NCCL places one rank per card: the multi-rank combine, pipeline, sharded train step and serve are "
+              "held across four cards by scripts/multicard_smoke.py (PERF.md's 4-card figures) and on gloo CPU "
+              "groups by tests/test_torch_parallel.py")
         del q, k, v, valid, valid_b, vcuts, res, one
         free_card()
 

@@ -48,6 +48,7 @@ from repro_torch.parallel.sharding import (
     from_local,
     gather_sequence,
     is_dtensor,
+    local_map,
     local_range,
     pin,
     shard_constraint,
@@ -129,25 +130,36 @@ def _chunked_attention(q, k, v, *, q_offset, window, scale, q_chunk, kv_chunk):
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def _padded_heads(h: int, kh: int, multiple: int) -> tuple[int, int]:
+    """(q heads, kv heads) after :func:`_pad_heads` pads ``h`` q heads over
+    ``kh`` kv heads to a multiple of ``multiple``."""
+    if h % multiple == 0:
+        return h, kh
+    if h == kh:  # MHA: q and kv heads padded together
+        n = -(-h // multiple) * multiple
+        return n, n
+    g_pad = h // kh  # GQA: grow the per-kv group count until flat heads divide the axis
+    while (kh * g_pad) % multiple:
+        g_pad += 1
+    return kh * g_pad, kh
+
+
 def _pad_heads(q, k, v, multiple: int):
     """Pad head counts to a multiple (zero fake heads) so indivisible head
     counts still shard over the model axis. Function-preserving: padded q
     heads attend to zero-k/v fake kv heads (MHA) or ride as extra GQA
-    groups; the caller slices their outputs away. Returns (q', k', v', H)."""
+    groups; the caller slices their outputs away. Returns (q', k', v')."""
     b, sq, h, d = q.shape
     kh = k.shape[2]
+    h_pad, kh_pad = _padded_heads(h, kh, multiple)
+    if h_pad == h:
+        return q, k, v
+    if kh_pad != kh:  # MHA
+        pad = (0, 0, 0, h_pad - h)
+        return F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
     g = h // kh
-    if h % multiple == 0:
-        return q, k, v, h
-    if g == 1:  # MHA: pad q and kv head dims together
-        pad = (0, 0, 0, -(-h // multiple) * multiple - h)
-        return F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), h
-    # GQA: grow the per-kv group count until flat heads divide the axis
-    g_pad = g
-    while (kh * g_pad) % multiple:
-        g_pad += 1
-    qg = F.pad(q.reshape(b, sq, kh, g, d), (0, 0, 0, g_pad - g))
-    return qg.reshape(b, sq, kh * g_pad, d), k, v, h
+    qg = F.pad(q.reshape(b, sq, kh, g, d), (0, 0, 0, h_pad // kh - g))
+    return qg.reshape(b, sq, h_pad, d), k, v
 
 
 def _unpad_heads(out, h_orig, kh_orig):
@@ -161,13 +173,30 @@ def _unpad_heads(out, h_orig, kh_orig):
     return out.reshape(b, sq, kh_orig, g_pad, d)[:, :, :, :g].reshape(b, sq, h_orig, d)
 
 
+def _whole_heads(fn, shapes, rules, *ts):
+    """``fn`` over the head dim of DTensors ``ts`` (B, S, H, D): the heads
+    made whole first, ``fn`` run on each rank's own rows (``local_map``),
+    its results of global ``shapes`` laid out as the inputs. DTensor
+    lowers neither the split of the head dim into (KV heads, groups), which
+    would cut a head-sharded dim, nor the pad of that 5-D view, which
+    PyTorch 2.11's DTensor fails to redistribute. Plain tensors go to
+    ``fn`` as they are."""
+    if not is_dtensor(ts[0]):
+        return fn(*ts)
+    ts = [shard_constraint(t, rules, ("batch", None, None, None)) for t in ts]
+    return local_map(fn, *ts, out=[(ts[0].placements, shape) for shape in shapes])
+
+
 def multihead_attention(run: RunConfig, q, k, v, *, q_offset=0, window=0, rules: Optional[ShardingRules] = None):
     """Dispatch on the configured implementation. Shapes as in _xla_attention."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     kh_orig, h_orig = k.shape[2], q.shape[2]
     pad = bool(rules is not None and run.pad_attention_heads_to)
     if pad:
-        q, k, v, h_orig = _pad_heads(q, k, v, run.pad_attention_heads_to)
+        h_pad, kh_pad = _padded_heads(h_orig, kh_orig, run.pad_attention_heads_to)
+        if h_pad != h_orig:
+            shapes = [(*q.shape[:2], h_pad, q.shape[3]), *((*t.shape[:2], kh_pad, t.shape[3]) for t in (k, v))]
+            q, k, v = _whole_heads(lambda *ts: _pad_heads(*ts, run.pad_attention_heads_to), shapes, rules, q, k, v)
         # the padded head dim now divides the model axis: constrain again
         q = shard_constraint(q, rules, ("batch", None, "tp", None))
         k = shard_constraint(k, rules, ("batch", None, "tp", None))
@@ -185,9 +214,8 @@ def multihead_attention(run: RunConfig, q, k, v, *, q_offset=0, window=0, rules:
     else:
         raise ValueError(f"unknown attention_impl {impl!r} (the port has xla, chunked, pallas)")
     if pad and out.shape[2] != h_orig:
-        # the heads whole first: the unpad's split of the head dim into
-        # (KH, padded groups) cannot cut a head-sharded dim on DTensor
-        out = _unpad_heads(shard_constraint(out, rules, ("batch", None, None, None)), h_orig, kh_orig)
+        out = _whole_heads(lambda o: _unpad_heads(o, h_orig, kh_orig), [(*out.shape[:2], h_orig, out.shape[3])],
+                           rules, out)
     return out
 
 

@@ -1,38 +1,49 @@
-"""Ranks of the gloo CPU runs of ``tests/test_torch_parallel.py``.
+"""Ranks of the multi-rank runs of ``tests/test_torch_parallel.py``.
 
-``python tests/torch_parallel_worker.py OUT_DIR`` starts 8 ranks with
-``torch.multiprocessing`` (a ``file://`` rendezvous in OUT_DIR, so that
-concurrent test workers never race for a port) and runs on them, in order:
-``sharded_decode_attention`` on a (2, 4) ("data", "model") mesh, both
-paths; the K1 wrapper on head-sharded DTensors; ``pipeline_apply`` on a (4, 2) ("pod", "data") mesh; one sharded
-``make_train_step`` of internlm2-1.8b cut to 2 layers (weights from
-OUT_DIR/train_in.pt); the forward loss with rules of moonshot-v1-16b-a3b-
-smoke, xlstm-1.3b-smoke and internlm2-1.8b-smoke with 6 q heads padded to
-8; the sharded serve steps on (2, 4), the cache's sequence over the 4-way
-model axis (``serve``): internlm2 cut to 2 layers (prefill of 4 prompts,
-6 greedy decode steps) on the kernel path, with a row parked, over a
+``python tests/torch_parallel_worker.py OUT_DIR [gloo|nccl]`` starts the
+backend's ranks with ``torch.multiprocessing`` (``launch/mesh.py::
+spawn_ranks``, a ``file://`` rendezvous in OUT_DIR, so that concurrent
+test workers never race for a port): 8 gloo ranks on the CPU (the
+default), or 4 NCCL ranks, one a card (it raises on a host with fewer).
+``BACKENDS`` gives each backend's meshes: ``main`` (gloo (2, 4), NCCL
+(2, 2)), ``pipe`` ((4, 2), (4, 1)), ``serve`` and ``moe`` ((2, 4), (1, 4):
+the cache's sequence and the experts over a 4-way model axis). On them,
+in order: ``sharded_decode_attention`` on ``main``, both paths; the K1
+wrapper on head-sharded DTensors; ``pipeline_apply`` on ``pipe``
+("pod", "data"); one sharded ``make_train_step`` of internlm2-1.8b cut to
+2 layers (weights from OUT_DIR/train_in.pt); the forward loss with rules
+of moonshot-v1-16b-a3b-smoke, xlstm-1.3b-smoke and internlm2-1.8b-smoke
+with 6 q heads padded to 8; the sharded serve steps on ``serve``
+(``serve``): internlm2 cut to 2 layers (prefill of 4 prompts, 6 greedy
+decode steps) on the kernel path, with a row parked, over a
 sliding-window ring that wraps, and on the einsum path with a row parked
 from the start (no valid key), and the ``-smoke`` configs of xlstm, jamba
-and moonshot with a row parked; the sharded ``lm_loss`` with the
-sequence over ``model`` and with the vocabulary over it (``loss``), and
-moonshot-v1-16b-a3b-smoke's ``moe_apply`` with rules, each data rank
-routing its own groups (``moe``: training, inference, and 6 experts that
-the 4-way model axis does not divide). Rank 0 writes every result to
-OUT_DIR/results.pt; the test compares them with the JAX package and with
-the port in one process. Imports no JAX.
+and moonshot with a row parked; the sharded ``lm_loss`` on ``main`` with
+the sequence over ``model`` and with the vocabulary over it (``loss``),
+and moonshot-v1-16b-a3b-smoke's ``moe_apply`` with rules on ``moe``, each
+data rank routing its own groups (``moe``: training, inference, and 6
+experts that the 4-way model axis does not divide). On the cards the
+attention configs take heads of 64 (:func:`on_device`: K1 and K2 take
+head_dim 64, 128 or 256) and every kernel runs; on the CPU their plain
+versions. Rank 0 writes every result, as CPU tensors, to
+OUT_DIR/results.pt; the test compares them with the JAX package (gloo)
+and with the port in one process (both backends). Imports no JAX.
 """
 
 import os
 import sys
-from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
-WORLD = 8
+# backend -> (ranks, device, meshes)
+BACKENDS = {
+    "gloo": (8, "cpu", {"main": (2, 4), "pipe": (4, 2), "serve": (2, 4), "moe": (2, 4)}),
+    "nccl": (4, "cuda", {"main": (2, 2), "pipe": (4, 1), "serve": (1, 4), "moe": (1, 4)}),
+}
+KERNEL_HEAD_DIM = 64  # the attention configs' heads on the cards
 DECODE_SHAPE = (4, 256, 8, 2, 64)  # B, S, H, KH, D, as tests/test_distributed.py
 PIPE_SHAPE = (4, 6, 2, 8)  # P, M, B, D, as tests/test_pipeline.py
 TRAIN_BATCH = (8, 32)
@@ -65,10 +76,29 @@ MOE_CASES = {"train": (False, (8, 128), {}), "inference": (True, (8, 128), {}),
              "train/e6": (False, (6, 64), {"num_experts": 6, "moe_capacity_factor": 0.5})}
 
 
+def on_device(cfg, device: str):
+    """``cfg`` as it runs on ``device``: on a card an attention config's
+    heads are KERNEL_HEAD_DIM wide (the smoke configs' 16 are below what
+    K1 and K2 take)."""
+    import dataclasses
+
+    if device == "cpu" or not any(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers)):
+        return cfg
+    return dataclasses.replace(cfg, head_dim=KERNEL_HEAD_DIM)
+
+
+def to_device(tree, device):
+    """Every tensor of a tree (dicts, lists, tuples) moved to ``device``;
+    other leaves as they are."""
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, tree)
+
+
 def decode_inputs(case: str):
     """q, k, v, valid for a decode case, from a numpy seed. ``edge``: row 0
-    has no valid key, row 3 has valid keys in the first of 4 sequence shards
-    only."""
+    has no valid key, row 3 has valid keys in the first quarter of the
+    sequence only (the first shard of 2 or 4)."""
     B, S, H, KH, D = DECODE_SHAPE
     rng = np.random.default_rng(0)
     q = rng.standard_normal((B, H, D)).astype(np.float32)
@@ -96,13 +126,24 @@ def train_batch():
             "mask": np.ones(shape, np.float32)}
 
 
-def train_setup():
+def train_setup(device: str = "cpu"):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
 
     cfg = get_config("internlm2-1.8b").reduced(num_layers=2, d_model=64, vocab_size=64,
                                                param_dtype="float32", compute_dtype="float32")
-    return cfg, RunConfig(remat="none", attention_impl="pallas", z_loss=0.0)
+    return on_device(cfg, device), RunConfig(remat="none", attention_impl="pallas", z_loss=0.0)
+
+
+def port_train_start(device: str = "cpu") -> dict:
+    """The train-step cut's weights (seeded, on the CPU) and AdamW state as
+    it runs on ``device``, from the port alone (where the JAX package is
+    missing: on the cards)."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    params = M.init_model(train_setup(device)[0], torch.Generator().manual_seed(0))
+    return {"params": params, "opt": adamw.init_opt_state(params)}
 
 
 def loss_inputs():
@@ -160,18 +201,18 @@ def moe_run(case: str, params, x, w, rules=None) -> dict:
         grads = torch.autograd.grad((y * w).sum() + aux["moe_aux"], live)
     return {"y": _full(y.detach()), "aux": {k: _full(v.detach()).item() for k, v in aux.items()},
             "grads": [_full(g) for g in grads],
-            "routing": [(r.top_i, r.pos, r.keep, r.cap) for r in seen]}
+            "routing": [(r.top_i.cpu(), r.pos.cpu(), r.keep.cpu(), r.cap) for r in seen]}
 
 
-def fwd_setup(arch: str):
+def fwd_setup(arch: str, device: str = "cpu"):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.models import model as M
 
     name, _, pad = arch.partition(":")
     heads = {"num_heads": 6, "num_kv_heads": 2} if pad else {}
-    cfg = get_config(name).reduced(param_dtype="float32", compute_dtype="float32", **heads)
-    params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    cfg = on_device(get_config(name).reduced(param_dtype="float32", compute_dtype="float32", **heads), device)
+    params = to_device(M.init_model(cfg, torch.Generator().manual_seed(0)), device)
     tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (8, FWD_ARCHS[arch]))
     run = RunConfig(remat="none", attention_impl="pallas", ssd_chunk=8, pad_attention_heads_to=4 if pad else 0)
     return cfg, run, params, tokens
@@ -181,19 +222,21 @@ def fwd_loss(cfg, run, params, tokens, rules=None):
     """The forward's LM loss of ``tokens`` against themselves shifted."""
     from repro_torch.launch.steps import _to_device
     from repro_torch.models import model as M
+    from repro_torch.models.common import tree_leaves
     from repro_torch.parallel.sharding import sharded_context
 
-    b = _to_device({"tokens": tokens}, "cpu", rules)
+    b = _to_device({"tokens": tokens}, tree_leaves(params)[0].device, rules)
     with sharded_context(rules):
         logits, aux = M.forward(cfg, run, params, b["tokens"], rules=rules)
         loss = M.lm_loss(cfg, run, logits[:, :-1], b["tokens"][:, 1:], None, aux)[0]
     return loss.full_tensor() if hasattr(loss, "full_tensor") else loss
 
 
-def serve_setup(case: str, params=None):
+def serve_setup(case: str, params=None, device: str = "cpu"):
     """``(cfg, run, params, prompts, active per decode step)`` of a serve
-    case; the cut uses ``params`` (the train-step cut's weights), the smoke
-    configs fp32 weights from a seeded generator."""
+    case, the params on ``device``; the cut uses ``params`` (the train-step
+    cut's weights), the smoke configs fp32 weights from a seeded
+    generator."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -202,10 +245,11 @@ def serve_setup(case: str, params=None):
 
     arch, window, impl, parked = SERVE_CASES[case]
     if arch == "cut":
-        cfg = dataclasses.replace(train_setup()[0], sliding_window=window)
+        cfg = dataclasses.replace(train_setup(device)[0], sliding_window=window)
     else:
-        cfg = dataclasses.replace(get_config(arch), param_dtype="float32", compute_dtype="float32")
+        cfg = on_device(dataclasses.replace(get_config(arch), param_dtype="float32", compute_dtype="float32"), device)
         params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    params = to_device(params, device)
     run = RunConfig(attention_impl="pallas", decode_attention_impl=impl, ssd_chunk=8)
     prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, SERVE_PROMPT)
     b = SERVE_PROMPT[0]
@@ -218,9 +262,11 @@ def serve(cfg, run, params, prompts, active, rules=None) -> dict:
     row's argmax), ``active[i]`` the mask of step i. Returns the logits and
     tokens of every step and the whole cache (plain tensors) after the
     prefill and after each step."""
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import _to_device, make_prefill_step, make_serve_step
     from repro_torch.models import model as M
+    from repro_torch.models.common import tree_leaves
 
+    device = tree_leaves(params)[0].device
     logits, cache = make_prefill_step(cfg, run, rules, SERVE_MAX_LEN)(params, {"tokens": prompts})
     out = {"logits": [_full(logits)], "tokens": [], "caches": [_full(cache)]}
     step = make_serve_step(cfg, run, rules)
@@ -230,10 +276,8 @@ def serve(cfg, run, params, prompts, active, rules=None) -> dict:
         if act is None:
             logits, cache = step(params, cache, {"tokens": tok.numpy()})
         else:  # the serve step takes tokens only, as the reference's: a parked row goes through decode_step
-            from repro_torch.launch.steps import _to_device
-
-            b = _to_device({"tokens": tok.numpy()}, "cpu", rules)
-            logits, cache = M.decode_step(cfg, run, params, cache, b["tokens"], active=torch.as_tensor(act),
+            b = _to_device({"tokens": tok.numpy()}, device, rules)
+            logits, cache = M.decode_step(cfg, run, params, cache, b["tokens"], active=torch.as_tensor(act, device=device),
                                           rules=rules)
         out["logits"].append(_full(logits))
         out["caches"].append(_full(cache))
@@ -246,15 +290,18 @@ def _layout(placements) -> list:
 
 
 def _full(tree):
+    """A tree's tensors whole (DTensors gathered) and on the CPU."""
     from repro_torch.models.common import tree_map
 
-    return tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t, tree)
+    return tree_map(lambda t: (t.full_tensor() if hasattr(t, "full_tensor") else t).cpu(), tree)
 
 
-def rank_main(rank: int, out: str):
+def rank_main(rank: int, out: str, backend: str = "gloo"):
+    world, device, meshes = BACKENDS[backend]
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{out}/rendezvous", rank=rank, world_size=WORLD,
-                            timeout=timedelta(seconds=120))
+    if device == "cuda":  # the one-process references are held to these bits: no TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh, parse_mesh_arg
     from repro_torch.launch.steps import distribute_tree, make_train_step
@@ -264,15 +311,15 @@ def rank_main(rank: int, out: str):
     from repro_torch.parallel.pipeline import pipeline_apply
     from repro_torch.parallel.sharding import rules_from_mesh, sharded_context
 
-    res = {}
-    mesh = make_mesh((2, 4), device="cpu")
+    res = {"backend": backend, "world": world, "meshes": meshes}
+    mesh = make_mesh(meshes["main"], device=device)
     res["mesh"] = (tuple(mesh.mesh_dim_names), tuple(mesh.shape),
-                   tuple(parse_mesh_arg("2x4", device="cpu").mesh_dim_names))
+                   tuple(parse_mesh_arg("x".join(map(str, meshes["main"])), device=device).mesh_dim_names))
     for case in ("random", "edge"):
         q, k, v, valid = (torch.from_numpy(a) for a in decode_inputs(case))
         for use_kernel in (True, False):
             o = sharded_decode_attention(q, k, v, valid, mesh, use_kernel=use_kernel)
-            res[f"decode/{case}/{use_kernel}"] = (o.full_tensor(), _layout(o.placements))
+            res[f"decode/{case}/{use_kernel}"] = (_full(o), _layout(o.placements))
     try:
         sharded_decode_attention(q, k[:, :255], v[:, :255], valid[:, :255], mesh)
         res["decode/indivisible"] = "no error"
@@ -290,13 +337,13 @@ def rank_main(rank: int, out: str):
             (q, ("batch", "tp", None)), (kk, ("batch", None, "tp", None)), (vv, ("batch", None, "tp", None)),
             (valid, ("batch", None)))]
         o = ops.decode_attention(*args)
-        res[f"decode_wrapper/{kh}"] = (o.full_tensor(), _layout(o.placements), (q, kk, vv, valid))
+        res[f"decode_wrapper/{kh}"] = (_full(o), _layout(o.placements), (q, kk, vv, valid))
 
-    pmesh = make_mesh((4, 2), ("pod", "data"), device="cpu")
-    w, x = (torch.from_numpy(a) for a in pipe_inputs())
-    res["pipeline"] = pipeline_apply(lambda wi, h: torch.tanh(h @ wi), w, x, pmesh, stage_axis="pod")
+    pmesh = make_mesh(meshes["pipe"], ("pod", "data"), device=device)
+    w, x = (torch.from_numpy(a).to(device) for a in pipe_inputs())
+    res["pipeline"] = _full(pipeline_apply(lambda wi, h: torch.tanh(h @ wi), w, x, pmesh, stage_axis="pod"))
 
-    cfg, run = train_setup()
+    cfg, run = train_setup(device)
     start = torch.load(Path(out) / "train_in.pt")
     specs = M.model_specs(cfg, rules)
     params = distribute_tree(start["params"], specs, mesh)
@@ -307,7 +354,7 @@ def rank_main(rank: int, out: str):
                     "placements": _layout(params["layers"][0]["attn"]["wq"].placements)}
 
     for arch in FWD_ARCHS:
-        fcfg, frun, fparams, tokens = fwd_setup(arch)
+        fcfg, frun, fparams, tokens = fwd_setup(arch, device)
         dparams = distribute_tree(fparams, M.model_specs(fcfg, rules), mesh)
         res[f"forward/{arch}"] = fwd_loss(fcfg, frun, dparams, tokens, rules).item()
 
@@ -322,14 +369,16 @@ def rank_main(rank: int, out: str):
         return sharded_decode_attention(*a, **k)
 
     cut_params = torch.load(Path(out) / "train_in.pt")["params"]  # the train step updated start's in place
+    smesh = make_mesh(meshes["serve"], device=device)
+    srules = rules_from_mesh(smesh)
     for case in SERVE_CASES:
-        cfg, run, sparams, prompts, active = serve_setup(case, cut_params)
-        dparams = distribute_tree(sparams, M.model_specs(cfg, rules), mesh)
+        cfg, run, sparams, prompts, active = serve_setup(case, cut_params, device)
+        dparams = distribute_tree(sparams, M.model_specs(cfg, srules), smesh)
         calls.clear()
         with mock.patch.object(A, "sharded_decode_attention", spy):
-            got = serve(cfg, run, dparams, prompts, active, rules)
+            got = serve(cfg, run, dparams, prompts, active, srules)
         got["sharded_decode_calls"] = list(calls)
-        cache = M.init_cache(cfg, SERVE_PROMPT[0], SERVE_MAX_LEN, "cpu", rules)
+        cache = M.init_cache(cfg, SERVE_PROMPT[0], SERVE_MAX_LEN, device, srules)
         got["placements"] = {k: _layout(t.placements) for k, t in cache.items() if not isinstance(t, dict)}
         res[f"serve/{case}"] = got
 
@@ -337,7 +386,7 @@ def rank_main(rank: int, out: str):
     from repro_torch.models import moe
     from repro_torch.models.common import build_specs
 
-    logits, labels, mask = (torch.from_numpy(a) for a in loss_inputs())
+    logits, labels, mask = (torch.from_numpy(a).to(device) for a in loss_inputs())
     for sp in (True, False):
         lrules = rules_from_mesh(mesh, sequence_parallel=sp)
         dl = distribute_tree(logits, lrules.spec(("batch", "sp", "tp"), logits.shape), mesh).requires_grad_()
@@ -346,15 +395,18 @@ def rank_main(rank: int, out: str):
             total, metrics = M.lm_loss(cfg, RunConfig(), dl, dlab, dmask, {})
             (grad,) = torch.autograd.grad(total, [dl])
         res[f"loss/sp={sp}"] = {"metrics": {k: _full(v).item() for k, v in metrics.items()},
-                                "grad": grad.full_tensor(), "layout": _layout(dl.placements)}
+                                "grad": _full(grad), "layout": _layout(dl.placements)}
 
+    mmesh = make_mesh(meshes["moe"], device=device)
+    mrules = rules_from_mesh(mmesh)
     for case in MOE_CASES:
-        mcfg, mparams, x, w = moe_setup(case)
-        dparams = distribute_tree(mparams, build_specs(moe.moe_defs(mcfg), rules), mesh)
-        got = moe_run(case, dparams, distribute_tree(x, rules.spec(("batch", "sp", None), x.shape), mesh), w, rules)
+        mcfg, mparams, x, w = (to_device(t, device) for t in moe_setup(case))
+        dparams = distribute_tree(mparams, build_specs(moe.moe_defs(mcfg), mrules), mmesh)
+        got = moe_run(case, dparams, distribute_tree(x, mrules.spec(("batch", "sp", None), x.shape), mmesh), w,
+                      mrules)
         # every rank's own routing, with its (data, model) coordinate
-        ranks = [None] * WORLD
-        dist.all_gather_object(ranks, (tuple(mesh.get_coordinate()), got.pop("routing")))
+        ranks = [None] * world
+        dist.all_gather_object(ranks, (tuple(mmesh.get_coordinate()), got.pop("routing")))
         got["routing"] = ranks
         got["expert_layout"] = _layout(dparams["gate"].placements)
         res[f"moe/{case}"] = got
@@ -362,9 +414,17 @@ def rank_main(rank: int, out: str):
     if rank == 0:
         torch.save(res, Path(out) / "results.pt")
     dist.barrier()
-    dist.destroy_process_group()
+
+
+def main(out: str, backend: str = "gloo") -> None:
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+    from repro_torch.launch.mesh import spawn_ranks
+
+    out = str(Path(out).resolve())  # a file:// rendezvous needs an absolute path
+    spawn_ranks(rank_main, BACKENDS[backend][0], args=(out, backend), backend=backend,
+                init_method=f"file://{out}/rendezvous", timeout_s=120 if backend == "gloo" else 300)
 
 
 if __name__ == "__main__":
     os.environ.setdefault("OMP_NUM_THREADS", "1")
-    mp.spawn(rank_main, args=(sys.argv[1],), nprocs=WORLD, join=True)
+    main(*sys.argv[1:3])
