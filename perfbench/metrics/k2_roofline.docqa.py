@@ -1,0 +1,20 @@
+"""k2_roofline.docqa: K2's least time over its device time in the profiled
+slice. The least time of each prefill layer is the larger of its causal
+pairs' operations over the bf16 peak and its q, k, v and output bytes over
+HBM bandwidth (``benchlib/counts.py::k2_least_s``), summed over the slice's
+prefills and layers; the device time is that of K2's kernels
+(``csrc/flash_attention.cu``) in the trace."""
+
+from benchlib.counts import k2_least_s
+
+KERNELS = ("::flash_tc_kernel", "::flash_fp32_kernel")
+
+
+def read(data):
+    s = data.get("slice")
+    if not s or not data.get("prefills"):
+        return None
+    d = data["dims"]
+    least = sum(d.L * k2_least_s(d, p["s"]) for p in data["prefills"] if p["in_slice"])
+    spent = sum(t for name, t in s["kernels"].items() if any(k in name for k in KERNELS))
+    return 100.0 * least / spent if least and spent else None
