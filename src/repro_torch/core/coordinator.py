@@ -36,6 +36,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core.capacity import CapacityEstimator
 from repro_torch.core.heartbeat import Heartbeat, HeartbeatMonitor
 from repro_torch.core.placement import HetSchedule, het_accumulation_schedule
@@ -122,31 +123,52 @@ class HetCoordinator:
         sched = self.schedule()
         combined, payloads, pod_metrics, pod_times = None, [], [], []
 
-        for pod, k, w in zip(pods, sched.microbatches, sched.weights):
+        # spans: train.grad carries the microbatch's index in the step, and
+        # train.combine the pod's index among the step's pods
+        mb = 0
+        for p_i, (pod, k, w) in enumerate(zip(pods, sched.microbatches, sched.weights)):
             acc = None
             for _ in range(k):
+                span = spans.begin("train.grad", mb) if spans.on else -1
                 grads, metrics = self.grad_fn(params, next(batch_iter))
+                if span >= 0:
+                    span = spans.then(span, "train.accumulate", device=True)
                 if acc is None:
                     acc = tree_map(lambda g: g.to(torch.float32), grads)
                 else:
                     acc = tree_map(torch.Tensor.add_, acc, grads)
                 del grads  # else they live on beside the next microbatch's
+                mb += 1
+                if span >= 0:
+                    spans.end(span)
+            span = spans.begin("train.accumulate", device=True) if spans.on else -1
             acc = tree_map(lambda g: g.div_(k), acc)
+            if span >= 0:
+                spans.end(span)
             # virtual pod wall time: k grains at the pod's (true) speed
             vt = k / max(pod.speed, 1e-9)
             pod_times.append(vt)
             self.monitor.beat(Heartbeat(pod.name, self._vtime + vt, grains_done=k, elapsed_s=vt))
+            span = spans.begin("train.combine", p_i, device=True) if spans.on else -1
             if self.compress:
                 payloads.append(pod.compressor.encode(acc))
             else:
                 combined = _fold_in(combined, acc, w)
+            if span >= 0:
+                spans.end(span)
             del acc  # else it lives on beside the next pod's
             pod_metrics.append(metrics)
 
         if self.compress:
+            span = spans.begin("train.combine", device=True) if spans.on else -1
             combined = CompressedAllReduce.combine(payloads, list(sched.weights))
+            if span >= 0:
+                spans.end(span)
 
+        span = spans.begin("train.update") if spans.on else -1
         params, opt_state, opt_metrics = self.update_fn(params, opt_state, combined)
+        if span >= 0:
+            spans.end(span)
 
         # bookkeeping: virtual makespan het vs homo
         step_s = max(pod_times) if pod_times else 0.0

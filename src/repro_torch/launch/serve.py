@@ -67,6 +67,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs import get_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.admission import (
@@ -457,20 +458,23 @@ class ServeLoop:
         Until the first decode step has measured capacity, at most one
         batch of requests is offered; ``force`` lifts that bound for the
         endgame drain."""
+        span = spans.begin("serve.pump") if spans.on else -1
         if self._policy is None:
             while self._pending:
                 self._ready.append(self._pending.popleft())
-            return
-        while self._pending:
-            if self._tok_rate <= 0 and not force and self._offered >= self.batch:
-                break
-            r = self._pending.popleft()
-            self._offered += 1
-            decision = self._policy.offer(self.as_job_request(r), self._view(self.now()))
-            if decision != DEFER:
-                self._resolve(r, decision)
-        for req, decision in self._policy.poll(self._view(self.now())):
-            self._resolve(self._by_id[req.job_id], decision)
+        else:
+            while self._pending:
+                if self._tok_rate <= 0 and not force and self._offered >= self.batch:
+                    break
+                r = self._pending.popleft()
+                self._offered += 1
+                decision = self._policy.offer(self.as_job_request(r), self._view(self.now()))
+                if decision != DEFER:
+                    self._resolve(r, decision)
+            for req, decision in self._policy.poll(self._view(self.now())):
+                self._resolve(self._by_id[req.job_id], decision)
+        if span >= 0:
+            spans.end(span)
 
     def _on_done(self, r: Request) -> None:
         sojourn = r.finished - r.arrived
@@ -495,8 +499,13 @@ class ServeLoop:
             self._slot_rid[s] = r.rid
             self._prefill_skipped += 1
             return
+        span = spans.begin("serve.prefill") if spans.on else -1
         logits, cache = self.prefill(self._tokens(r.prompt[None]))
+        if span >= 0:
+            span = spans.then(span, "serve.first_token")
         tok = int(torch.argmax(logits[0, -1]))
+        if span >= 0:
+            spans.end(span)
         r.tokens.append(tok)
         r.first_token = self.now()
         if self.mode == "arena":
@@ -511,7 +520,10 @@ class ServeLoop:
             s = heapq.heappop(self._free_slots)
             self._slot_rid[s] = r.rid
             self._slot_last[s] = tok
+            span = spans.begin("serve.slot_write") if spans.on else -1
             _slot_write(self._arena, cache, s)
+            if span >= 0:
+                spans.end(span)
             return
         pos = int(r.prompt.shape[0])
         if self.mode == "cohort":
@@ -525,7 +537,11 @@ class ServeLoop:
 
     def _fill_slots(self) -> None:
         while self._ready and self._active_count() < self.batch:
-            self._admit(self._ready.popleft())
+            r = self._ready.popleft()
+            span = spans.begin("serve.admit", r.rid) if spans.on else -1
+            self._admit(r)
+            if span >= 0:
+                spans.end(span)
 
     def _merge_groups(self) -> None:
         """Coalesce groups whose positions have come to coincide."""
@@ -543,12 +559,18 @@ class ServeLoop:
     def _step_arena(self) -> None:
         """One decode step for the whole arena: a single call advances
         every occupied slot, whatever mix of positions they sit at."""
+        span = spans.begin("serve.decode.issue") if spans.on else -1
         act = np.array([rid is not None for rid in self._slot_rid])
         new = self._decode_arena(
             self._arena,
             self._tokens(self._slot_last[:, None]),
             torch.as_tensor(act, device=self.device),
-        ).cpu().numpy()
+        )
+        if span >= 0:
+            span = spans.then(span, "serve.decode.readback")
+        new = new.cpu().numpy()
+        if span >= 0:
+            span = spans.then(span, "serve.decode.book")
         self._decode_calls += 1
         self._occ_sum += int(act.sum())
         t_step = self.now()
@@ -578,6 +600,8 @@ class ServeLoop:
                     if r.session_id >= 0:
                         self._session_slot.pop(r.session_id, None)
                     self._release_slot(s)
+        if span >= 0:
+            spans.end(span)
 
     def _step_groups(self) -> None:
         if self.mode == "cohort" and len(self._groups) > 1:
@@ -610,14 +634,18 @@ class ServeLoop:
                     g.last = [g.last[i] for i in keep]
 
     def _step(self) -> None:
-        t_in, toks_in = time.perf_counter(), self._decode_tokens
+        # one pair of clock reads times the step for the rate EMA and, when
+        # the recorder is on, stamps the ends of its serve.decode span
+        t_in, toks_in = time.time_ns(), self._decode_tokens
+        span = spans.begin("serve.decode", t=t_in) if spans.on else -1
         if self.mode == "arena":
             self._step_arena()
         else:
             self._step_groups()
-        inst = (self._decode_tokens - toks_in) / max(
-            time.perf_counter() - t_in, 1e-9
-        )
+        t_out = time.time_ns()
+        if span >= 0:
+            spans.end(span, t_out)
+        inst = (self._decode_tokens - toks_in) / max((t_out - t_in) / 1e9, 1e-9)
         self._tok_rate = (
             inst if self._tok_rate <= 0 else 0.8 * self._tok_rate + 0.2 * inst
         )
@@ -633,6 +661,14 @@ class ServeLoop:
         Returns ``"step"`` (made progress), ``"wait"`` (deferred requests
         exist but the policy released nothing — the caller owns the
         wall-clock and decides whether to sleep), or ``"done"``."""
+        if not spans.on:
+            return self._tick()
+        span = spans.begin("serve.tick")
+        status = self._tick()
+        spans.end(span)
+        return status
+
+    def _tick(self) -> str:
         if self._active_count() == 0:
             if self._ready:
                 self._fill_slots()

@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -409,13 +410,24 @@ def decode_step(
                 y, state = ssm.mamba_apply_step(cfg, blk["mamba"], layer, hn, rules)
                 for key, t in state.items():
                     _write_rows(layer[key], t, active)
+                span = spans.begin("model.ffn") if spans.on else -1
                 h, _ = _ffn(cfg, blk, h + y, inference=True, rules=rules)
+                if span >= 0:
+                    spans.end(span)
             else:
                 hn = rms_norm(h, blk["norm"], cfg.norm_eps)
                 layer_cache = {"k": cache["k"][j], "v": cache["v"][j]}
+                span = spans.begin("model.attn") if spans.on else -1
                 h = h + attn.attn_apply_step(cfg, run, blk["attn"], layer_cache, hn, pos, active, rules)
+                if span >= 0:
+                    span = spans.then(span, "model.ffn")
                 h, _ = _ffn(cfg, blk, h, inference=True, rules=rules)
+                if span >= 0:
+                    spans.end(span)
+        span = spans.begin("model.head") if spans.on else -1
         logits = _head(cfg, params, h, rules)
+        if span >= 0:
+            spans.end(span)
         if active is None:
             pos += 1
         else:
