@@ -1035,7 +1035,11 @@ def serve_arena(cfg, params, lens, max_len: int, batch: int, card: str, spy_kern
     run = RunConfig(remat="none", attention_impl="pallas", decode_attention_impl="kernel")
     corpus = SyntheticCorpus(cfg.vocab_size, max(lens), seed=0)
     reqs = [Request(i, corpus.grain_tokens(i, 1)[0][:n], 32) for i, n in enumerate(lens)]
-    loop = ServeLoop(cfg, run, params, batch=batch, max_len=max_len, mode="arena", device="cuda")
+    # the kernel spies are Python, which a replayed decode step does not
+    # run: a spying serve builds its loop without warm-up, so no step is
+    # captured and every one runs eagerly
+    loop = ServeLoop(cfg, run, params, batch=batch, max_len=max_len, mode="arena", warmup=not spy_kernels,
+                     device="cuda")
     loop.warm(min(lens))
     drops, windows, wrapped = [], [], []
     moe_apply, flash, decode = moe.moe_apply, ops.flash_attention, ops.decode_attention
@@ -1082,6 +1086,8 @@ def serve_arena(cfg, params, lens, max_len: int, batch: int, card: str, spy_kern
           f"{cfg.name}: K2 launches {launches['flash_attention']} != {n_attn} x {stats['prefill_calls']} prefills")
     check(launches["decode_attention"] == n_attn * stats["decode_calls"],
           f"{cfg.name}: K1 launches {launches['decode_attention']} != {n_attn} x {stats['decode_calls']} decode calls")
+    check(stats["decode_graph_replays"] == (0 if spy_kernels else stats["decode_calls"]),
+          f"{cfg.name}: {stats['decode_graph_replays']} of {stats['decode_calls']} decode calls replayed")
     check(launches["ssm_scan"] == n_scan * stats["prefill_calls"],
           f"{cfg.name}: K3 launches {launches['ssm_scan']} != {n_scan} x {stats['prefill_calls']} prefills")
     check(len(drops) == n_moe * len(lens), f"{cfg.name}: {len(drops)} MoE prefill calls != {n_moe} x {len(lens)}")
@@ -3231,6 +3237,8 @@ def main(argv=None) -> int:
           f"K2 launches {launches['flash_attention']} != {L} x {stats['prefill_calls']} prefills")
     check(launches["decode_attention"] == L * stats["decode_calls"],
           f"K1 launches {launches['decode_attention']} != {L} x {stats['decode_calls']} decode calls")
+    check(stats["decode_graph_replays"] == stats["decode_calls"],
+          f"{stats['decode_graph_replays']} of {stats['decode_calls']} decode calls replayed")
     check(all(len(r.tokens) == 32 for r in reqs), "every request got 32 tokens")
     record["serve"] = {**stats, "launches": launches, "peak_bytes": peak}
     print(f"serve qwen3-1.7b arena batch=8 max_len=2048, 16 requests (prompts 128-1024, gen 32) on {card}: "

@@ -18,7 +18,17 @@ whatever the length mix. A request joins by copying its prefilled cache
 into a free slot (an in-place ``index_copy_`` on the slot axis) and leaves
 by marking the slot free at a token boundary. Greedy sampling (argmax) is
 part of the decode call, so the host reads back ``batch`` token ids per
-step, not logits. The run is eager: one Python call per step.
+step, not logits.
+
+**On the card the arena's decode step is one CUDA graph.** Warm-up builds
+the loop's arena, runs one eager step on a side stream and captures the
+step (``decode_step`` and the argmax) over static token and mask buffers;
+each tick then copies the tokens and the mask in from pinned host buffers
+and replays the graph, so no Python runs between the step's kernels. The
+arena is kept for the loop's life: a session's slots overwrite what the
+last one left. Any other arena (a copy, a sharded DTensor cache), a loop
+built with ``warmup=False``, the CPU, and the cohort and serial modes run
+the step eagerly, one Python call per step. The prefill stays eager.
 
 ``mode="cohort"`` (position groups) and ``mode="serial"`` (one slot per
 call, the single-request reference) remain for the comparisons the tests
@@ -61,6 +71,7 @@ import heapq
 import math
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Optional, Union
 
@@ -80,6 +91,7 @@ from repro_torch.core.admission import (
     trailing_class_p99,
 )
 from repro_torch.data.dataset import SyntheticCorpus
+from repro_torch.kernels import ops
 from repro_torch.models import model as M
 
 
@@ -165,6 +177,75 @@ def _slot_write(arena, one, slot: int) -> None:
     _map_cache(lambda a, o, dim: a.index_copy_(dim, idx, o), arena, one)
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+@contextmanager
+def _side_stream(device: torch.device):
+    """Run the block on a fresh stream of ``device``, ordered after the
+    current stream's work and before what follows it; on the CPU, as is."""
+    if device.type != "cuda":
+        yield
+        return
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        yield
+    cur.wait_stream(side)
+
+
+def _capture(fn, device: torch.device):
+    """``fn()`` recorded as one CUDA graph, which runs nothing until it is
+    replayed, and ``fn``'s output, which every replay overwrites; ``None``
+    off the card, where there is no graph to record."""
+    if device.type != "cuda":
+        return None
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+class _StepGraph:
+    """The arena decode step as one CUDA graph over static device buffers:
+    ``toks`` (B, 1) int64 and ``act`` (B,) bool in, ``out`` (B,) int64 the
+    greedy tokens. ``launches`` holds the ``ops.LAUNCHES`` counts that the
+    capture recorded: a capture runs no kernel, so they are taken back out
+    of the counts, and each replay adds them."""
+
+    def __init__(self, arena, graph, out, toks, act, launches: dict):
+        self.arena, self.graph, self.out = arena, graph, out
+        self.toks, self.act, self.launches = toks, act, launches
+
+    @classmethod
+    def capture(cls, arena, step, toks, act, device) -> Optional["_StepGraph"]:
+        """``step(arena, toks, act)`` captured; ``None`` off the card."""
+        before = dict(ops.LAUNCHES)
+        got = _capture(lambda: step(arena, toks, act), device)
+        launches = {k: ops.LAUNCHES[k] - n for k, n in before.items()}
+        for k, n in launches.items():
+            ops.LAUNCHES[k] -= n
+        return None if got is None else cls(arena, *got, toks, act, launches)
+
+    def holds(self, arena) -> bool:
+        """Whether ``arena`` is the captured one, tensor for tensor."""
+        return all(a is b for a, b in zip(_leaves(arena), _leaves(self.arena)))
+
+    def replay(self, toks: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+        self.toks.copy_(toks, non_blocking=True)
+        self.act.copy_(act, non_blocking=True)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            ops.LAUNCHES[k] += n
+        return self.out
+
+
 class ServeLoop:
     """Single-replica continuous batching behind a shared admission policy.
 
@@ -205,6 +286,14 @@ class ServeLoop:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeLoop(device='cuda'): no CUDA device is available; "
                                "pass device='cpu' to run the plain path on the CPU")
+        # the arena (built by warm-up, or by the first admit without one) is
+        # kept for the loop's life; on the card warm-up captures its step
+        self._arena = None
+        self._graph: Optional[_StepGraph] = None
+        self._graph_replays = 0
+        pin = self.device.type == "cuda"
+        self._host_toks = torch.zeros((batch, 1), dtype=torch.long, pin_memory=pin)
+        self._host_act = torch.zeros((batch,), dtype=torch.bool, pin_memory=pin)
 
     def prefill(self, toks: torch.Tensor):
         self._prefills += 1
@@ -215,7 +304,17 @@ class ServeLoop:
 
     def _decode_arena(self, arena, toks: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
         """Decode step + greedy argmax in one call: the host reads back
-        ``batch`` token ids, not a (B, 1, vocab) logits tensor."""
+        ``batch`` token ids, not a (B, 1, vocab) logits tensor. ``toks``
+        (B, 1) and ``act`` (B,) may lie on the host or the device. The
+        captured arena replays its graph (the result is the graph's output,
+        which the next replay overwrites); any other arena steps eagerly."""
+        g = self._graph
+        if g is not None and g.holds(arena):
+            self._graph_replays += 1
+            return g.replay(toks, act)
+        return self._decode_eager(arena, toks.to(self.device), act.to(self.device))
+
+    def _decode_eager(self, arena, toks: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
         logits, _ = M.decode_step(self.cfg, self.run, self.params, arena, toks, active=act)
         return torch.argmax(logits[:, -1, :], dim=-1)
 
@@ -227,15 +326,27 @@ class ServeLoop:
         *before* the measured window opens. On the card that builds and
         loads the CUDA kernels and initialises cuBLAS; a first-hit build
         inside the serve loop would stall decoding mid-run and land in the
-        capacity EMA that capacity-gated policies act on."""
+        capacity EMA that capacity-gated policies act on.
+
+        In arena mode it builds the loop's arena and steps it once, on a
+        side stream, as a capture wants its first call (lazy handles and
+        workspaces made outside the capture); on the card it then captures
+        the step. A later warm-up replays the captured step."""
         tok = torch.zeros((1, prompt_len), dtype=torch.long, device=self.device)
         _, cache = M.prefill(self.cfg, self.run, self.params, tok, self.max_len)
         if self.mode == "arena":
-            arena = M.init_cache(self.cfg, self.batch, self.max_len, self.device)
-            _slot_write(arena, cache, 0)
+            if self._arena is None:
+                self._arena = M.init_cache(self.cfg, self.batch, self.max_len, self.device)
+            _slot_write(self._arena, cache, 0)
+            toks = torch.zeros((self.batch, 1), dtype=torch.long, device=self.device)
             act = torch.zeros((self.batch,), dtype=torch.bool, device=self.device)
             act[0] = True
-            self._decode_arena(arena, torch.zeros((self.batch, 1), dtype=torch.long, device=self.device), act)
+            if self._graph is not None:
+                self._decode_arena(self._arena, toks, act)
+                return
+            with _side_stream(self.device):
+                self._decode_eager(self._arena, toks, act)
+            self._graph = _StepGraph.capture(self._arena, self._decode_eager, toks, act, self.device)
             return
         widths = range(1, self.batch + 1) if self.batched else (1,)
         c = cache
@@ -281,12 +392,12 @@ class ServeLoop:
         self._rejected: list[Request] = []
         self._groups: list[_Group] = []
         # arena state: rid per slot (None = free), last emitted token per
-        # slot, ascending free-slot heap (lowest slot wins — deterministic),
-        # and the stacked cache itself (lazy: first admit builds it)
+        # slot, ascending free-slot heap (lowest slot wins — deterministic);
+        # the arena itself outlives the session, its slots all free again
         self._slot_rid: list[Optional[int]] = [None] * self.batch
         self._slot_last = np.zeros(self.batch, np.int64)
         self._free_slots = list(range(self.batch))
-        self._arena = None
+        self._graph_replays = 0
         # session residency: a finished turn whose session is still live
         # *parks* its slot (cache bytes stay) instead of freeing it —
         # session_id → slot, insertion-ordered so the first entry is the
@@ -561,11 +672,9 @@ class ServeLoop:
         every occupied slot, whatever mix of positions they sit at."""
         span = spans.begin("serve.decode.issue") if spans.on else -1
         act = np.array([rid is not None for rid in self._slot_rid])
-        new = self._decode_arena(
-            self._arena,
-            self._tokens(self._slot_last[:, None]),
-            torch.as_tensor(act, device=self.device),
-        )
+        self._host_toks.numpy()[:, 0] = self._slot_last
+        self._host_act.numpy()[:] = act
+        new = self._decode_arena(self._arena, self._host_toks, self._host_act)
         if span >= 0:
             span = spans.then(span, "serve.decode.readback")
         new = new.cpu().numpy()
@@ -707,6 +816,8 @@ class ServeLoop:
             "wall_s": wall,
             "decode_steps": self._decode_tokens,
             "decode_calls": self._decode_calls,
+            # decode calls that replayed the captured step
+            "decode_graph_replays": self._graph_replays,
             "prefill_calls": self._prefills,
             # mean fraction of the batch doing useful work per call
             "slot_occupancy": (

@@ -29,6 +29,12 @@ A site:
 
 The recorder assumes one thread; :func:`enable` and :func:`disable` are
 called between the program's calls, never inside one.
+
+The spans inside ``models/model.py::decode_step`` (``model.attn``,
+``model.ffn``, ``model.head``) stamp the host's issue of the layers, so
+they fire only on an eager step: on the card a serving loop replays its
+arena's captured step as one CUDA graph, which runs no Python, and its
+``serve.decode.issue`` then spans the input copies and the replay's launch.
 """
 
 from __future__ import annotations

@@ -9,8 +9,15 @@
   ``test_affinity.py``, ``test_router.py`` and ``test_admission.py``).
 * The copied admission policies decide as ``repro.core.admission`` does.
 
-The ``gpu``-marked test runs the arena-vs-serial identity on the card,
-through the CUDA kernels, and skips elsewhere.
+* The arena's captured decode step (``serve._capture`` replaced by a
+  stand-in that reruns the step on its static buffers): the eager arena's
+  streams bit for bit, a replay on every decode call, other arenas and
+  unwarmed loops eager, and kernel launches counted once a replay.
+
+The ``gpu``-marked tests run on the card, through the CUDA kernels and the
+captured step, and skip elsewhere: the arena-vs-serial identity (dense,
+MoE and Mamba cuts), the arena held once, and the kernel paths against the
+plain ones.
 """
 
 import dataclasses
@@ -282,6 +289,135 @@ def test_cuda_loop_raises_without_a_card(monkeypatch):
         ServeLoop(None, None, None, batch=2, max_len=8)
 
 
+# ------------------------------------------- the captured arena step
+
+
+class _Rerun:
+    """Stands in for a CUDA graph on the CPU: the capture runs the function
+    once for its output, and each replay runs it again on the same static
+    inputs and writes its result into that output. A graph replays kernels
+    and no Python, so a replay leaves ``ops.LAUNCHES`` as it found it."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.out = fn()
+
+    def replay(self):
+        from repro_torch.kernels import ops
+
+        counts = dict(ops.LAUNCHES)
+        self.out.copy_(self.fn())
+        ops.LAUNCHES.update(counts)
+
+
+@pytest.fixture
+def rerun_capture(monkeypatch):
+    """``serve._capture`` replaced by :class:`_Rerun`, on any device."""
+    from repro_torch.launch import serve
+
+    def capture(fn, device):
+        g = _Rerun(fn)
+        return g, g.out
+
+    monkeypatch.setattr(serve, "_capture", capture)
+
+
+def _session_script(loop) -> tuple:
+    """One session through three slots: joins into reused slots, a cancel
+    mid-decode, a parked multi-turn session resumed from its slot and one
+    evicted under slot pressure. The requests and the stats."""
+    corpus = SyntheticCorpus(CFG.vocab_size, max(LENS), 0)
+
+    def req(rid, gen, sid=-1, end=False):
+        return Request(rid, corpus.grain_tokens(rid, 1)[0][: LENS[rid % len(LENS)]], gen,
+                       session_id=sid, session_end=end)
+
+    reqs = [req(0, 2, sid=1), req(1, 8), req(2, 9)]
+    later = {1: [req(3, 3, sid=1, end=True), req(4, 2, sid=2)], 5: [req(5, 4), req(6, 5), req(7, 6)]}
+    loop.start(list(reqs), t0=time.perf_counter())
+    for tick in range(1, 200):
+        status = loop.tick()
+        for r in later.pop(tick, []):
+            reqs.append(r)
+            loop.enqueue(r)
+        if tick == 3:
+            assert loop.cancel(2)
+        if status == "done" and not later:
+            break
+    return reqs, loop.stats()
+
+
+def test_replayed_arena_streams_equal_the_eager_arena(rerun_capture):
+    """The captured step's static-buffer path (inputs copied in, the output
+    read from the graph's) gives the eager arena's tokens bit for bit, over
+    joins, a cancel, a resumed session and an evicted one; every decode
+    call replays."""
+    params = _params()
+    runs = {}
+    for warm in (False, True):
+        loop = ServeLoop(CFG, RUN, params, batch=3, max_len=32, device="cpu", warmup=warm)
+        loop.warm(max(LENS))
+        reqs, stats = _session_script(loop)
+        runs[warm] = [r.tokens for r in reqs]
+        assert stats["cancelled"] == 1 and stats["prefill_skipped"] >= 1 and stats["sessions_evicted"] >= 1
+        assert stats["completed"] == len(reqs) - 1
+        assert stats["decode_graph_replays"] == (stats["decode_calls"] if warm else 0) and stats["decode_calls"]
+    assert runs[True] == runs[False]
+
+
+def test_other_arenas_and_unwarmed_loops_step_eagerly(rerun_capture):
+    """A loop built with ``warmup=False`` captures nothing; on a warmed
+    loop, an arena that is not the captured one (a copy, as the benchmark's
+    fault hands it) steps eagerly, and its state moves while the captured
+    arena's does not."""
+    params = _params()
+    cold = ServeLoop(CFG, RUN, params, batch=4, max_len=32, device="cpu", warmup=False)
+    stats = cold.run_requests(_requests(5))
+    assert cold._graph is None and stats["decode_graph_replays"] == 0 and stats["decode_calls"]
+
+    loop = _loop(params, "arena")
+    loop.warm(max(LENS))
+    assert loop._graph is not None and loop._graph.holds(loop._arena)
+    copy = {k: v.clone() for k, v in loop._arena.items()}
+    assert not loop._graph.holds(copy)
+    pos = loop._arena["pos"].clone()
+    toks, act = torch.zeros((4, 1), dtype=torch.long), torch.ones(4, dtype=torch.bool)
+    loop._decode_arena(copy, toks, act)
+    assert loop._graph_replays == 0
+    assert torch.equal(loop._arena["pos"], pos) and torch.equal(copy["pos"], pos + 1)
+    loop._decode_arena(dict(loop._arena), toks, act)  # the same tensors: the captured arena
+    assert loop._graph_replays == 1 and torch.equal(loop._arena["pos"], pos + 1)
+
+
+def test_launches_count_a_replay_as_its_captured_kernels_and_a_capture_as_none(rerun_capture, monkeypatch):
+    """K1's plain version counted as the kernel's launches are: warm-up's
+    one eager step counts, its capture nothing, and each replay the layers'
+    K1 launches the capture recorded."""
+    from repro_torch.kernels import ops
+
+    plain = ops.decode_attention_plain
+
+    def counted(*args, **kwargs):
+        ops.LAUNCHES["decode_attention"] += 1
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "decode_attention_plain", counted)
+    ops.reset_launches()
+    loop = _loop(_params(), "arena", run=KERNEL_RUN)
+    loop.warm(max(LENS))
+    L = CFG.num_layers
+    assert loop._graph.launches["decode_attention"] == L
+    assert ops.LAUNCHES["decode_attention"] == L  # the warm-up step; the capture ran none
+    ops.reset_launches()
+    loop.start(_requests(6), t0=time.perf_counter())
+    while loop.tick() != "done":
+        pass
+    stats = loop.stats()
+    assert stats["decode_graph_replays"] == stats["decode_calls"] > 0
+    assert ops.LAUNCHES["decode_attention"] == L * stats["decode_calls"]
+    ops.reset_launches()
+
+
 # ------------------------------------------- the copied admission policies
 
 
@@ -363,7 +499,68 @@ def test_arena_streams_bit_identical_to_serial_on_card():
     stats, arena = run("arena")
     _, serial = run("serial")
     assert stats["completed"] == 7
+    assert stats["decode_graph_replays"] == stats["decode_calls"]
     assert [r.tokens for r in arena] == [r.tokens for r in serial]
+
+
+CARD_CUTS = {
+    "moonshot": lambda: get_config("moonshot-v1-16b-a3b").reduced(head_dim=64),
+    "jamba": lambda: get_config(JAMBA).reduced(d_model=256, head_dim=128, num_heads=2, num_kv_heads=1),
+    "xlstm": lambda: get_config("xlstm-1.3b").reduced(),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(CARD_CUTS))
+def test_replayed_arena_streams_equal_serial_on_card(arch):
+    """The arena-vs-serial identity with every arena step replayed from its
+    CUDA graph, on a MoE cut (moonshot-smoke at head_dim 64), the Mamba-2
+    hybrid (jamba-smoke at d_model 256, four Mamba heads) and the xLSTM
+    stack (xlstm-smoke: mLSTM and sLSTM steps), bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cfg = CARD_CUTS[arch]()
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+
+    def run(mode):
+        reqs = _requests(7)
+        loop = ServeLoop(cfg, KERNEL_RUN, params, batch=4, max_len=32, mode=mode, device="cuda")
+        return loop.run_requests(reqs), reqs
+
+    stats, arena = run("arena")
+    _, serial = run("serial")
+    assert stats["completed"] == 7 and stats["decode_graph_replays"] == stats["decode_calls"] > 0
+    assert [r.tokens for r in arena] == [r.tokens for r in serial]
+
+
+EXTRA = 96 * 2**20
+
+
+@pytest.mark.gpu
+def test_one_arena_after_warm_up_and_the_first_admit_on_card():
+    """Warm-up builds the loop's arena and captures its step; the first
+    admit writes into that arena, so the card holds one arena, at no point
+    two. Beside it the card holds the graph's small pool and cuBLAS's
+    workspace for each new stream (32 MiB on this card): ``EXTRA``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cfg = get_config("qwen3-1.7b").reduced(num_layers=2, d_model=128, vocab_size=256, head_dim=64)
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loop = ServeLoop(cfg, KERNEL_RUN, params, batch=4, max_len=65536, mode="arena", device="cuda")
+    loop.warm(max(LENS))
+    arena = loop._arena
+    loop.start(_requests(4), t0=time.perf_counter())
+    loop.tick()
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in (arena["pos"], arena["k"], arena["v"]))
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    assert loop._arena is arena and loop.stats()["decode_graph_replays"] == 1
+    assert nbytes <= held < nbytes + EXTRA, (held, nbytes)
+    assert peak < 2 * nbytes, (peak, nbytes)
 
 
 @pytest.mark.gpu

@@ -11,8 +11,9 @@ tiny ``ServeLoop`` in arena mode and a tiny ``HetCoordinator`` step.
 * The stamps share the profiler's clock: every ``aten::mm`` the profiler
   records inside a decode step lies inside a ``model.*`` span.
 
-The ``gpu``-marked test checks on the card that each decode step's first K1
-kernel starts inside its ``serve.decode.issue`` span.
+The ``gpu``-marked tests check on the card that each eager decode step's
+first K1 kernel starts inside its ``serve.decode.issue`` span, and that each
+replayed step's K1 kernels run inside its ``serve.decode`` span.
 """
 
 import dataclasses
@@ -233,17 +234,14 @@ def test_spans_share_the_profilers_clock():
         assert any(s.start_ns <= a and b <= s.end_ns for s in model), (a, b)
 
 
-@pytest.mark.gpu
-def test_first_k1_kernel_of_a_step_starts_inside_its_issue_span_on_card():
-    """On the card, through K1: the profiler's device timeline and the
-    recorder's host stamps agree, so each decode step's first K1 kernel
-    starts after its ``serve.decode.issue`` span opens and before it closes."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+def _traced_ticks_on_card(warmup: bool):
+    """Four decode ticks of a small qwen3 arena through K1, profiled, the
+    recorder on: the loop's config, its stats, the spans and the start and
+    end of every K1 split kernel."""
     cfg = get_config("qwen3-1.7b").reduced(num_layers=2, d_model=128, vocab_size=256, head_dim=64)
     params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
     run = RunConfig(attention_impl="pallas", decode_attention_impl="kernel")
-    loop = ServeLoop(cfg, run, params, batch=4, max_len=64, mode="arena", device="cuda")
+    loop = ServeLoop(cfg, run, params, batch=4, max_len=64, mode="arena", warmup=warmup, device="cuda")
     g = torch.Generator().manual_seed(1)
     loop.start([Request(i, torch.randint(0, 256, (8 + i,), generator=g).numpy(), 12) for i in range(4)])
     loop.tick()  # every slot admitted, the kernels built
@@ -254,12 +252,43 @@ def test_first_k1_kernel_of_a_step_starts_inside_its_issue_span_on_card():
             loop.tick()
         torch.cuda.synchronize()
     spans.disable()
-    got = spans.drain()
-    issues = [s for s in got if s.name == "serve.decode.issue"]
-    k1 = sorted(e.start_ns() for e in prof.profiler.kineto_results.events()
+    k1 = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in prof.profiler.kineto_results.events()
                 if e.device_type() == torch.autograd.DeviceType.CUDA and "split_kernel" in e.name())
-    assert len(issues) == 4 and len(k1) >= 4 * cfg.num_layers
+    return cfg, loop.stats(), spans.drain(), k1
+
+
+@pytest.mark.gpu
+def test_first_k1_kernel_of_a_step_starts_inside_its_issue_span_on_card():
+    """On the card, through K1, on an eager loop (``warmup=False``: no
+    captured step): the profiler's device timeline and the recorder's host
+    stamps agree, so each decode step's first K1 kernel starts after its
+    ``serve.decode.issue`` span opens and before it closes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cfg, stats, got, k1 = _traced_ticks_on_card(warmup=False)
+    assert stats["decode_graph_replays"] == 0
+    issues = [s for s in got if s.name == "serve.decode.issue"]
+    starts = [a for a, _ in k1]
+    assert len(issues) == 4 and len(starts) >= 4 * cfg.num_layers
     for s in issues:
-        first = next(t for t in k1 if t >= s.start_ns)
+        first = next(t for t in starts if t >= s.start_ns)
         assert first <= s.end_ns, (s, first)
     assert np.all(np.diff([s.start_ns for s in issues]) > 0)
+
+
+@pytest.mark.gpu
+def test_k1_kernels_of_a_replayed_step_run_inside_its_decode_span_on_card():
+    """The replay's version: every decode step of a warmed loop replays its
+    CUDA graph, which runs no ``model.*`` span, and each step's K1 kernels,
+    one a layer, start and end inside its ``serve.decode`` span (the
+    readback waits for them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cfg, stats, got, k1 = _traced_ticks_on_card(warmup=True)
+    assert stats["decode_graph_replays"] == stats["decode_calls"] == 5
+    decodes = [s for s in got if s.name == "serve.decode"]
+    assert len(decodes) == 4 and not any(s.name.startswith("model.") for s in got)
+    assert len(k1) == 4 * cfg.num_layers
+    for s in decodes:
+        inside = [(a, b) for a, b in k1 if s.start_ns <= a and b <= s.end_ns]
+        assert len(inside) == cfg.num_layers, (s, k1)
