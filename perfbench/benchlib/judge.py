@@ -3,9 +3,11 @@ the configuration (``configs/<reference>.py``).
 
 Serving: a sample of the requests, drawn from the seed with the longest
 in it, until it holds ``check.served_tokens`` served tokens; the reference
-runs once over each prompt with its served tokens, and the numbers compared
-is the widest gap by which a served token's logit lies below the
-reference's best at its position (greedy tokens only), ``gap``.
+runs once over each prompt with its served tokens. The gap of a served
+token is how far its logit lies below the reference's best at its position
+(greedy tokens only); the numbers are the widest gap, ``gap``, which every
+served mix limits, and the mean gap over the sample, ``mean_gap``, which a
+mix may limit beside it.
 
 Training: the first steps of the run, followed by the reference from the
 same weights on the same microbatches: each microbatch's loss, each leaf's
@@ -49,18 +51,19 @@ def _seqs(reqs, device):
 
 
 def serve_gaps(ref, cfg: dict, params: dict, reqs, device, control: bool = False) -> dict:
-    """The widest gap of the served tokens of ``reqs`` below the float32
-    reference's best logit; with ``control``, also the widest gap of the
+    """The widest and the mean gap of the served tokens of ``reqs`` below
+    the float32 reference's best logit; with ``control``, also those of the
     tokens that the fp8 control would put first at the same positions."""
     seqs, prompts = _seqs(reqs, device)
     logits = ref.served_logits(cfg, params, seqs, prompts)
     served = [torch.as_tensor(r.tokens, device=device) for r in reqs]
     gaps = torch.cat([lg.max(-1).values - lg.gather(-1, s[:, None])[:, 0] for lg, s in zip(logits, served)])
-    out = {"gap": float(gaps.max()), "tokens": int(gaps.numel()), "disagree": int((gaps > 0).sum())}
+    out = {"gap": float(gaps.max()), "mean_gap": float(gaps.mean()), "tokens": int(gaps.numel()),
+           "disagree": int((gaps > 0).sum())}
     if control:
         low = ref.served_logits(cfg, params, seqs, prompts, quant="fp8")
         g = torch.cat([lg.max(-1).values - lg.gather(-1, c.argmax(-1)[:, None])[:, 0] for lg, c in zip(logits, low)])
-        out["control_gap"] = float(g.max())
+        out["control_gap"], out["control_mean_gap"] = float(g.max()), float(g.mean())
     return out
 
 

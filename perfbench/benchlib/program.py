@@ -1,13 +1,15 @@
 """What the benchmark takes from the program under test, ``repro_torch``
-(``src/repro_torch``), in one place: its model configuration, its serving
-replica and request, its training step, optimizer and heterogeneous
-coordinator. Nothing else of the program is imported, and nothing of the
-JAX package it was ported from.
+(``src/repro_torch``), in one place: its model configuration and the shapes
+of its weights, its serving replica and request, its training step,
+optimizer and heterogeneous coordinator, and its span recorder. Nothing
+else of the program is imported, and nothing of the JAX package it was
+ported from.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 
 
 def load() -> None:
@@ -29,6 +31,64 @@ def model_config(cfg: dict):
     mcfg = dataclasses.replace(get_config(prog["preset"]), **prog.get("overrides", {}))
     mcfg.validate()
     return mcfg
+
+
+# what every reference's program_sizes() states, so that an empty one cannot pass
+REQUIRED_SIZES = ("num_layers", "d_model", "vocab_size")
+
+
+def breaches(ref, cfg: dict) -> list[str]:
+    """Where the program built from the configuration file ``cfg`` departs
+    from what its plain reference ``ref`` states; empty where it departs in
+    nothing. ``ref.program_sizes(cfg)`` names ``ModelConfig`` attributes
+    with their values, and ``ref.leaf_paths(ref.dims(cfg))`` every weight
+    with its shape: the program has to hold each size, and the weights of
+    its model have to be those, leaf for leaf."""
+    from repro_torch.models import model as M
+
+    sizes = ref.program_sizes(cfg)
+    out = [f"{k}: not stated" for k in REQUIRED_SIZES if k not in sizes]
+    m = model_config(cfg)
+    for k, v in sizes.items():
+        have = getattr(m, k, "<none>")
+        if have != v:
+            out.append(f"{k}: the program has {have!r}, the file {v!r}")
+    theirs = M.model_shapes(m)
+    paths = ref.leaf_paths(ref.dims(cfg))
+    for path, shape, _ in paths:
+        node = theirs
+        try:
+            for key in path:
+                node = node[key]
+        except (KeyError, IndexError, TypeError):
+            out.append(f"{'/'.join(map(str, path))}: no such weight in the program")
+            continue
+        if tuple(node.shape) != tuple(shape):
+            out.append(f"{'/'.join(map(str, path))}: the program's {tuple(node.shape)}, the file's {tuple(shape)}")
+    n = sum(1 for _ in _leaves(theirs))
+    if n != len(paths):
+        out.append(f"the program has {n} weights, the file {len(paths)}")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def recorder():
+    """The program's span recorder (``repro_torch.spans``), or ``None``
+    where the program has none."""
+    try:
+        return importlib.import_module("repro_torch.spans")
+    except ModuleNotFoundError:
+        return None
 
 
 def serve_run():

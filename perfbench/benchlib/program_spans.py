@@ -9,10 +9,10 @@ slice keeps its bounds on the same clock and its events
 program span around each as well as by the harness's span and the host
 call. Nothing of this is read inside the window.
 
-Where the program has no recorder, :func:`recorder` returns ``None`` and a
-run is left as it was; the readers then return ``None``. ``run.py`` and the
-run modules do not call this module: ``tools/spans.py`` runs a cell
-through ``run.py`` with it.
+``run.py`` runs every cell through :func:`traced`, and the run modules
+take :class:`SpanSlice` as their slice. Where the program has no recorder
+(``program.recorder()`` returns ``None``), a run is left as it was; the
+readers then return ``None``. An untraced run never touches the recorder.
 
 What ``data`` gains: ``spans`` (the program's spans, in the order they
 began), ``window_ns`` (the window's opening and close), and in
@@ -25,19 +25,11 @@ slice's idle seconds by the program span around each gap).
 
 from __future__ import annotations
 
-import importlib
 import time
 
+from . import program
 from .stats import percentile
 from .trace import Slice, _merge
-
-
-def recorder():
-    """The program's span recorder, or ``None`` where it has none."""
-    try:
-        return importlib.import_module("repro_torch.spans")
-    except ModuleNotFoundError:
-        return None
 
 
 class SpanSlice(Slice):
@@ -90,9 +82,11 @@ def traced(drive, cell, ref, phases) -> dict:
     call) until the run returns, CUDA events on the card; the drained spans
     and the window's bounds go into the run's ``data``, and the slice's gaps
     are named by them."""
-    rec = recorder() if cell.trace else None
+    rec = program.recorder() if cell.trace else None
     if rec is None:
-        return drive(cell, ref, phases)
+        data = drive(cell, ref, phases)
+        (data.get("slice") or {}).pop("events", None)
+        return data
     clock, opened = cell.clock, []
 
     def opening():
@@ -154,6 +148,18 @@ def decode_ms(data, name: str):
     profiled slice, in ms."""
     got = [(s.end_ns - s.start_ns) / 1e6 for s in data.get("spans") or () if s.name == name and outside(data, s)]
     return percentile(got, 50) if got else None
+
+
+def decode_issue_ms(data):
+    """:func:`decode_ms` of ``serve.decode.issue``: the input copies and the
+    issue of a decode step (on the card, the replay's launch)."""
+    return decode_ms(data, "serve.decode.issue")
+
+
+def decode_readback_ms(data):
+    """:func:`decode_ms` of ``serve.decode.readback``: the wait for a decode
+    step's tokens on the host."""
+    return decode_ms(data, "serve.decode.readback")
 
 
 def admit_stall_p99_ms(data):

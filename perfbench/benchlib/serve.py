@@ -29,7 +29,7 @@ from collections import deque
 import torch
 
 from . import judge, program, traffic
-from .trace import Slice
+from .program_spans import SpanSlice
 
 
 class Timer:
@@ -57,7 +57,7 @@ class Timer:
 class Recorder:
     """The requests of a run, their tokens' stamps and the prefills."""
 
-    def __init__(self, loop, slice_: Slice, device):
+    def __init__(self, loop, slice_: SpanSlice, device):
         self.loop, self.slice = loop, slice_
         self.reqs, self.open, self.stamps = [], [], {}
         self.prefills = []  # (prompt tokens, Timer, in the slice, start on the loop's clock)
@@ -173,7 +173,7 @@ def run(cell, ref, phases) -> dict:
     _sync(dev)
     phases["warm_s"] = time.perf_counter() - t
 
-    sl = Slice(cell.trace)
+    sl = SpanSlice(cell.trace)
     rec = Recorder(loop, sl, dev)
     drain_limit = max(seconds, mix.get("drain_s", 0))
     loop.start([])

@@ -2,7 +2,9 @@
 
 A cell (an entry of ``workloads``) names a configuration and a traffic
 mix. The configuration's file is the entry's ``file`` in ``configs``; its
-``reference`` key names its plain reference, ``configs/<reference>.py``.
+``reference`` key names its plain reference, ``configs/<reference>.py``,
+which states the file's contract with the program (``program_sizes``,
+``leaf_paths``) and its own CPU-sized cut (``tiny_cut``).
 The mix is ``traffic/<traffic>.json``. Each metric is read by
 ``metrics/<metric name>.py``, whose ``read(data)`` returns the number or
 ``None`` where the run held nothing to read. A cell reports the metrics

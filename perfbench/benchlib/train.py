@@ -23,7 +23,7 @@ import torch
 
 from . import judge, program, traffic
 from .serve import Timer, _sync
-from .trace import Slice
+from .program_spans import SpanSlice
 
 
 class Feed:
@@ -57,7 +57,7 @@ def run(cell, ref, phases) -> dict:
     t = time.perf_counter()
     mcfg = program.model_config(cfg)
     coord, opt_state = program.trainer(mcfg, program.train_run(opt), params, mix)
-    sl = Slice(cell.trace)
+    sl = SpanSlice(cell.trace)
     losses, updates = [], []
     grad0, update0 = coord.grad_fn, coord.update_fn
 

@@ -16,6 +16,12 @@ activations and each output column of a weight scaled to the format's
 range, as an fp8 serving or training path would (in training the gradient
 passes the rounding in float32).
 
+As every reference of a configuration does, it states the contract between
+its file and the program: ``program_sizes`` (the program's ``ModelConfig``
+attributes that the file implies) and ``leaf_paths`` (every weight with its
+shape), which ``benchlib/program.py::breaches`` holds the program to, and
+``tiny_cut`` (its own cut to a size the CPU tests run in seconds).
+
 It imports nothing of the program and no JAX.
 """
 
@@ -57,6 +63,26 @@ def dims(cfg: dict) -> Dims:
         eps=cfg["rms_norm_eps"], theta=float(cfg["rope_theta"]), tied=bool(cfg["tie_word_embeddings"]),
         qk_norm=bool(a.get("qk_norm", False)),
     )
+
+
+def program_sizes(cfg: dict) -> dict:
+    """The attributes of the program's ``ModelConfig`` that a configuration
+    file implies, each with its value: what the program built from the file
+    has to hold. No layer routes over experts."""
+    d = dims(cfg)
+    return {"num_layers": d.L, "d_model": d.D, "num_heads": d.H, "num_kv_heads": d.KH, "head_dim_": d.hd,
+            "vocab_size": d.V, "tie_embeddings": d.tied, "norm_eps": d.eps, "rope_theta": d.theta,
+            "qk_norm": d.qk_norm, "d_ff": d.F, "num_experts": 0}
+
+
+def tiny_cut() -> tuple[dict, dict]:
+    """A cut of this architecture that the CPU runs in seconds: the file's
+    keys and the program's overrides that make it two layers 64 wide with a
+    vocabulary of 256."""
+    return ({"num_hidden_layers": 2, "hidden_size": 64, "num_attention_heads": 4, "num_key_value_heads": 2,
+             "head_dim": 16, "intermediate_size": 128, "vocab_size": 256},
+            {"num_layers": 2, "d_model": 64, "num_heads": 4, "num_kv_heads": 2, "head_dim": 16, "d_ff": 128,
+             "vocab_size": 256})
 
 
 def fp32() -> None:

@@ -1,7 +1,7 @@
 """Fixtures of the benchmark's own tests: the harness's modules on the path,
 the card where there is one, and cells cut to a size the CPU runs in
-seconds (the same files, with the widths, depth, traffic and window made
-tiny)."""
+seconds (the same files, each configuration cut as its reference's
+``tiny_cut()`` gives, the traffic and window made tiny)."""
 
 from __future__ import annotations
 
@@ -16,11 +16,6 @@ for p in (HERE, HERE.parent / "src"):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
-TINY = ({"num_hidden_layers": 2, "hidden_size": 64, "num_attention_heads": 4, "num_key_value_heads": 2,
-         "head_dim": 16, "intermediate_size": 128, "vocab_size": 256},
-        {"num_layers": 2, "d_model": 64, "num_heads": 4, "num_kv_heads": 2, "head_dim": 16, "d_ff": 128,
-         "vocab_size": 256})
-
 
 @pytest.fixture
 def cuda():
@@ -31,18 +26,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def tiny(name: str, fp32: bool = True, seconds: float = 1.5, seed: int = 2**33 + 5):
-    """The cell ``name`` cut to a CPU size: two layers 64 wide, a vocabulary
-    of 256, a few short requests or microbatches; with ``fp32`` the program
-    computes in float32, so that it agrees with the reference to round-off."""
-    from benchlib import host, spec
-
-    c = spec.resolve(name)
-    cfg = copy.deepcopy(c.cfg)
-    keys, over = TINY
+def tiny_config(cfg: dict, ref, fp32: bool = True) -> dict:
+    """The configuration file ``cfg`` cut to the size its reference ``ref``
+    gives for the CPU (``ref.tiny_cut()``); with ``fp32`` the program
+    computes in float32, so that it agrees with the reference to
+    round-off."""
+    cfg = copy.deepcopy(cfg)
+    keys, over = ref.tiny_cut()
     cfg.update(keys)
     over = dict(over, **({"compute_dtype": "float32"} if fp32 else {}))
     cfg["program"] = dict(cfg["program"], overrides=dict(cfg["program"].get("overrides", {}), **over))
+    return cfg
+
+
+def tiny(name: str, fp32: bool = True, seconds: float = 1.5, seed: int = 2**33 + 5):
+    """The cell ``name`` cut to a CPU size: its configuration as
+    :func:`tiny_config` cuts it, a few short requests or microbatches."""
+    from benchlib import host, spec
+
+    c = spec.resolve(name)
+    cfg = tiny_config(c.cfg, c.ref, fp32)
     mix = copy.deepcopy(c.mix)
     if mix["kind"] == "open_loop":
         mix.update(slots=4, max_len=80, rate_per_s=4.0, drain_s=20)
@@ -64,3 +67,8 @@ def tiny(name: str, fp32: bool = True, seconds: float = 1.5, seed: int = 2**33 +
 @pytest.fixture
 def tiny_cell():
     return tiny
+
+
+@pytest.fixture
+def tiny_cfg():
+    return tiny_config

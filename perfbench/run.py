@@ -7,11 +7,12 @@ the program (``src/repro_torch``), measures for ``--seconds`` seconds,
 checks what the timed path produced against the plain reference, and
 prints one JSON line last: ``correct``, ``attempted``, ``failed``, the
 cell's end-to-end metrics (``--trace 0``) or its per-layer metrics
-(``--trace 1``, with the profiled slice's ``busy_s``, ``window_s`` and
-``breakdown``), ``device`` and, last, ``checks``: each compared number with
-its limit. Set-up phases and counts go on earlier lines. It exits non-zero
-with no result where there is no card, too few cards, a forbidden module
-(JAX or the JAX package) loaded, or no program to run.
+(``--trace 1``: the program's own spans recorded over the window, with the
+profiled slice's ``busy_s``, ``window_s`` and ``breakdown``), ``device``
+and, last, ``checks``: each compared number with its limit. Set-up phases
+and counts go on earlier lines. It exits non-zero with no result where
+there is no card, too few cards, a forbidden module (JAX or the JAX
+package) loaded, or no program to run.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def main(argv=None) -> None:
     import torch
 
     phases["import_torch_s"] = time.perf_counter() - t
-    from benchlib import serve, spec, train
+    from benchlib import program_spans, serve, spec, train
 
     cell = spec.resolve(args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
@@ -84,7 +85,7 @@ def main(argv=None) -> None:
     cell.seed, cell.seconds, cell.trace, cell.device = args.seed, args.seconds, bool(args.trace), "cuda"
     cell.clock = host.seconds_since_start
     drive = train.run if cell.mix["kind"] == "train" else serve.run
-    data = drive(cell, cell.ref, phases)
+    data = program_spans.traced(drive, cell, cell.ref, phases)
     data["setup_s"] = phases["setup_s"]
     host.note("phases", phases)
     report(cell, data, torch.cuda.get_device_name(0))
@@ -107,7 +108,9 @@ def report(cell, data: dict, kind: str) -> None:
     if cell.trace:
         s = data["slice"]
         device["busy_s"], device["window_s"] = s["busy_s"], s["window_s"]
-        result["breakdown"] = {"device_ops": s["device_ops"], "idle_gaps": s["idle_gaps"]}
+        # the longest idle gaps named by the program's spans where it recorded them
+        gaps = s.get("program_idle_gaps", s["idle_gaps"])
+        result["breakdown"] = {"device_ops": s["device_ops"], "idle_gaps": gaps}
 
     t = time.perf_counter()
     got = data["finish"]()

@@ -8,6 +8,7 @@ numbers compared far past round-off."""
 from __future__ import annotations
 
 import gc
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -49,7 +50,7 @@ def test_control_fails_and_program_passes_at_the_cells_size(cuda, name):
             finally:
                 judge.serve_gaps = orig
             for k, lim in limits.items():
-                assert got[k] <= lim < got[k.replace("gap", "control_gap")], got
+                assert got[k] <= lim < got["control_" + k], got
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -72,3 +73,27 @@ def test_control_moves_the_training_readings_past_round_off(tiny_cell):
                            mix["check_steps"], mix["microbatches"], quant=q) for q in (None, "fp8")}
     got = judge.train_gaps(runs["fp8"], runs[None])
     assert got["grad"] > 1e-3 and got["loss"] > 1e-5, got
+
+
+def test_the_judge_reports_the_mean_gap_beside_the_widest(tiny_cell):
+    """Served tokens that are the reference's own greedy tokens but for one,
+    altered: the widest gap is that token's, the mean gap its share over
+    the served tokens; the control's are read at the same positions."""
+    c = tiny_cell("qwen3-1.7b.docqa")
+    params = c.ref.make_params(c.cfg, 13, "cpu", torch.float32)
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, 256, (n,), generator=gen) for n in (24, 9)]
+    reqs = []
+    for rid, p in enumerate(prompts):
+        toks = []
+        for _ in range(5):  # greedy by the reference itself
+            seq = torch.cat([p, torch.tensor(toks, dtype=torch.long)])
+            toks.append(int(c.ref.served_logits(c.cfg, params, [seq], [len(seq)])[0][-1].argmax()))
+        reqs.append(SimpleNamespace(rid=rid, prompt=p.numpy(), tokens=toks))
+    exact = judge.serve_gaps(c.ref, c.cfg, params, reqs, "cpu", control=True)
+    assert exact["tokens"] == 10 and exact["gap"] < 1e-5 and exact["mean_gap"] < 1e-6
+    assert exact["control_gap"] >= exact["control_mean_gap"] >= 0.0
+    reqs[1].tokens[-1] = (reqs[1].tokens[-1] + 1) % 256  # the last: no later position reads it
+    got = judge.serve_gaps(c.ref, c.cfg, params, reqs, "cpu")
+    assert got["gap"] > 1e-3 and got["mean_gap"] == pytest.approx(got["gap"] / 10, rel=1e-4)
+    assert "control_mean_gap" not in got

@@ -1,6 +1,7 @@
 """The rest of a run, past the harness's look for a card, at a tiny size on
-the CPU: sound, ``correct`` comes out true; with the timed path broken
-underneath, false. Once for each fault a cell can have: a decode step that
+the CPU, for every served cell of ``BENCHMARK.json`` (found by its mix's
+kind) and the training cell: sound, ``correct`` comes out true; with the
+timed path broken underneath, false. Once for each fault a cell can have: a decode step that
 returns its state unchanged, a token altered where it is produced, an
 optimizer step that returns its state unchanged, half of each training
 microbatch left out (the mean taken over the rest). The cells have one card
@@ -15,15 +16,15 @@ from __future__ import annotations
 import pytest
 import torch
 
-from benchlib import judge, program, serve, train
+from benchlib import judge, program, serve, spec, train
 
-TINY_LIMITS = {"gap": 1e-3, "loss": 1e-4, "grad": 1e-3, "change": 1e-3}
+TINY_LIMITS = {"gap": 1e-3, "mean_gap": 1e-4, "loss": 1e-4, "grad": 1e-3, "change": 1e-3}
+# every served cell of BENCHMARK.json, by its mix's kind
+SERVED = [w["name"] for w in spec.benchmark()["workloads"] if spec.resolve(w["name"]).mix["kind"] != "train"]
 
 
-def _verdict(c, data):
-    got = data["finish"]()
-    limits = {k: TINY_LIMITS[k] for k in c.mix["check"]["limits"]}
-    return judge.verdict(limits, got)
+def _verdict(c, got):
+    return judge.verdict({k: TINY_LIMITS[k] for k in c.mix["check"]["limits"]}, got)
 
 
 def _token_altered(loop):
@@ -50,7 +51,7 @@ def _decode_state_unchanged(loop):
 SERVE_FAULTS = {"token_altered": _token_altered, "decode_state_unchanged": _decode_state_unchanged}
 
 
-@pytest.mark.parametrize("cell", ["qwen3-1.7b.docqa", "qwen3-1.7b.batch"])
+@pytest.mark.parametrize("cell", SERVED)
 @pytest.mark.parametrize("fault", [None, *SERVE_FAULTS])
 def test_serving_run_is_judged(tiny_cell, monkeypatch, cell, fault):
     c = tiny_cell(cell, seconds=1.0)
@@ -65,7 +66,9 @@ def test_serving_run_is_judged(tiny_cell, monkeypatch, cell, fault):
         monkeypatch.setattr(program, "serve_loop", faulty)
     data = serve.run(c, c.ref, {})
     assert data["attempted"] > 0 and data["failed"] == 0
-    correct, checks = _verdict(c, data)
+    got = data["finish"]()
+    assert 0.0 <= got["mean_gap"] <= got["gap"]
+    correct, checks = _verdict(c, got)
     assert correct == (fault is None), checks
 
 
@@ -102,5 +105,5 @@ def test_training_run_is_judged(tiny_cell, monkeypatch, fault):
 
         monkeypatch.setattr(program, "trainer", faulty)
     data = train.run(c, c.ref, {})
-    correct, checks = _verdict(c, data)
+    correct, checks = _verdict(c, data["finish"]())
     assert correct == (fault is None), checks

@@ -1,7 +1,9 @@
 """The end of a run, ``run.py::report``, at a tiny size on the CPU: the
 result line comes last, with the compared numbers last in it; a request that
-never finished does not make the run incorrect; and a forbidden module that
-the judge loads after the window stops the run with no result."""
+never finished does not make the run incorrect; a traced run reports the
+metrics read from the program's spans and names its idle gaps by them; and a
+forbidden module that the judge loads after the window stops the run with no
+result."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import types
 
 import pytest
 
-from benchlib import host, serve, spec
+from benchlib import host, program_spans, serve, spec
 
 RUN = spec.load_module(host.BENCH_DIR / "run.py")
 
@@ -56,6 +58,23 @@ def test_a_request_that_never_finished_is_not_an_incorrect_output(finished, caps
     RUN.report(c, data, "cpu")
     line = _last_line(capsys.readouterr().out)
     assert line["correct"] is True and line["failed"] == 3
+
+
+def test_a_traced_run_reports_the_program_spans(finished, capsys):
+    c = finished[0]
+    c.trace, c.seconds = True, 2.0
+    c.mix["trace"] = dict(c.mix["trace"], min_ticks=1, min_prefills=0)  # most ticks outside the slice
+    data = program_spans.traced(serve.run, c, c.ref, {})
+    data["setup_s"] = 1.0
+    assert data["spans"] and "program_idle_gaps" in data["slice"]
+    # the CPU's slice has no device gaps to name: one is planted
+    named = [["bench.tick serve.decode/serve.decode.readback -", 0.01]]
+    data["slice"]["program_idle_gaps"] = named
+    RUN.report(c, data, "cpu")
+    line = _last_line(capsys.readouterr().out)
+    assert line["correct"] is True and line["breakdown"]["idle_gaps"] == named
+    assert {"decode_issue_ms.docqa", "admit_stall_p99_ms.docqa"} <= set(line["metrics"])
+    assert {m["name"] for m in c.per_layer} >= set(line["metrics"])
 
 
 @pytest.mark.parametrize("name", ["jax", "repro"])

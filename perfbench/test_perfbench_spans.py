@@ -11,7 +11,7 @@ from collections import namedtuple
 
 import pytest
 
-from benchlib import program_spans, serve, spec, train
+from benchlib import program, program_spans, serve, spec, train
 from repro_torch.spans import Span
 
 TOOL = spec.load_module(spec.BENCH_DIR / "tools" / "spans.py")
@@ -22,39 +22,45 @@ ADDED = ("spans", "window_ns")
 ADDED_TO_SLICE = ("ns", "gaps", "gap_labels", "program_idle_gaps", "idle_by_span")
 
 
-def _traced(tiny_cell, monkeypatch, name):
-    c = tiny_cell(name, seconds=12.0 if name.endswith(".train") else 1.5)
-    if c.mix["kind"] == "train":  # a tiny microbatch takes 0.5-2 s here: the first step is traced and counted
+def _traced(tiny_cell, name):
+    c = tiny_cell(name, seconds=24.0 if name.endswith(".train") else 1.5)
+    if c.mix["kind"] == "train":
+        # a tiny microbatch takes 0.5-2 s here, and a step under the profiler up to 7 s on a loaded CPU: the
+        # first step is traced and counted, and the window holds untraced steps after it
         c.mix.update(microbatches=3, first_steps=1, check_steps=1, trace=dict(c.mix["trace"], start_frac=0.0))
     c.trace = True
     drive = train.run if c.mix["kind"] == "train" else serve.run
-    monkeypatch.setattr(serve, "Slice", program_spans.SpanSlice)
-    monkeypatch.setattr(train, "Slice", program_spans.SpanSlice)
     phases = {}
     return c, program_spans.traced(drive, c, c.ref, phases), phases
 
 
 @pytest.mark.parametrize("name", list(READINGS))
-def test_each_reading_is_finite_on_a_tiny_traced_run(tiny_cell, monkeypatch, name):
-    c, data, phases = _traced(tiny_cell, monkeypatch, name)
+def test_each_reading_is_finite_on_a_tiny_traced_run(tiny_cell, name):
+    c, data, phases = _traced(tiny_cell, name)
     got = TOOL.readings(data, phases)
     for key in READINGS[name]:
         assert got[key] is not None and math.isfinite(got[key]), (key, got)
     assert data["slice"]["ns"][0] < data["slice"]["ns"][1]
     assert got["by_name"] and all(math.isfinite(v["host_ms_median"]) for v in got["by_name"].values())
-    # the existing readers read the same values without what the spans added
+    # the cell's metrics that read the program's spans read what the tool reads
     metrics = [m["name"] for m in c.per_layer + c.end_to_end]
-    before = {m: spec.reader(m)(data) for m in metrics}
+    of_spans = [m for m in metrics if spec.reader(m).__module__ == program_spans.__name__]
+    assert sorted(m.split(".")[0] for m in of_spans) == sorted(READINGS[name])
+    assert all(spec.reader(m)(data) == got[m.split(".")[0]] for m in of_spans)
+    # the other readers read the same values without what the spans added
+    others = [m for m in metrics if m not in of_spans]
+    before = {m: spec.reader(m)(data) for m in others}
     for key in ADDED:
         del data[key]
     for key in ADDED_TO_SLICE:
         data["slice"].pop(key, None)
-    assert {m: spec.reader(m)(data) for m in metrics} == before
+    assert {m: spec.reader(m)(data) for m in others} == before
+    assert all(spec.reader(m)(data) is None for m in of_spans)
 
 
 def test_without_a_recorder_the_run_is_left_as_it_was(tiny_cell, monkeypatch):
     monkeypatch.setitem(sys.modules, "repro_torch.spans", None)  # a program that has none
-    assert program_spans.recorder() is None
+    assert program.recorder() is None
     c = tiny_cell("qwen3-1.7b.docqa")
     c.trace = True
     clock, seen = c.clock, []
@@ -74,7 +80,7 @@ def test_an_untraced_run_never_turns_the_recorder_on(tiny_cell):
     c = tiny_cell("qwen3-1.7b.batch", seconds=0.5)
     data = program_spans.traced(serve.run, c, c.ref, {})
     assert not any(key in data for key in ADDED)
-    assert not program_spans.recorder().on
+    assert not program.recorder().on
 
 
 Event = namedtuple("Event", "a b name cuda")

@@ -1,5 +1,6 @@
-"""Run one cell traced, as ``run.py --trace 1`` does, with the program's own
-spans on over its window (``benchlib/program_spans.py``), and read them.
+"""Run one cell traced, as ``run.py --trace 1`` does (the program's own
+spans on over its window, ``benchlib/program_spans.py``), and print more of
+what its spans hold than the cell's metrics.
 
     python3 perfbench/tools/spans.py --workload <name> --seed <n> --seconds <s>
 
@@ -20,8 +21,7 @@ more line, ``{"program_spans": {...}}``:
   <program span> <host call>``; ``idle_by_span``: the slice's idle seconds
   by the program span around each gap;
 * ``window_tick_ms``, ``slice_tick_ms`` (serving) and ``train_tok_s``
-  (training): the traced run's pace, to set beside a ``run.py --trace 1``
-  run's for what the program's spans cost.
+  (training): the traced run's pace.
 """
 
 from __future__ import annotations
@@ -78,18 +78,16 @@ def main(argv=None) -> None:
     ap.add_argument("--seconds", required=True)
     args = ap.parse_args(argv)
     host.pin_caches()  # before torch is imported
-    from benchlib import program_spans, serve, spec, train
+    from benchlib import program_spans, spec
 
-    def with_spans(drive):
-        def run(cell, ref, phases):
-            data = program_spans.traced(drive, cell, ref, phases)
-            host.note("program_spans", readings(data, phases))
-            return data
+    traced = program_spans.traced
 
-        return run
+    def noting(drive, cell, ref, phases):
+        data = traced(drive, cell, ref, phases)
+        host.note("program_spans", readings(data, phases))
+        return data
 
-    serve.run, train.run = with_spans(serve.run), with_spans(train.run)
-    serve.Slice = train.Slice = program_spans.SpanSlice
+    program_spans.traced = noting
     spec.load_module(host.BENCH_DIR / "run.py").main(["--workload", args.workload, "--seed", args.seed,
                                                       "--seconds", args.seconds, "--trace", "1"])
 

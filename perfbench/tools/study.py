@@ -5,12 +5,14 @@ cell's own size, in one process.
         --seconds <s> [--control <n>] [--faults <n>] --out <file.jsonl>
 
 For each seed it runs the cell (weights, traffic, warm-up and a short window
-at the cell's own load, as ``run.py`` does) and reads the numbers that are
-compared: a served cell's widest gap, a training cell's loss, gradient and
-change gaps. On the first ``--control`` seeds it reads the control beside
-them: the reference computed with float8 products put in the program's
-place (served: the gap of the token the control puts first at each served
-position; training: the control's steps against the float32 reference's).
+at the cell's own load, as ``run.py`` does) and reads the numbers that
+may be compared: a served cell's widest and mean gap, a training cell's
+loss, gradient and change gaps. On the first ``--control`` seeds it reads
+the control beside them: the reference computed with float8 products put in
+the program's place (served: the widest and mean gap of the tokens the
+control puts first at the served positions, ``control_gap`` and
+``control_mean_gap``; training: the control's steps against the float32
+reference's).
 On the first ``--faults`` seeds of a training cell it plants half a batch
 left out in the program and reads that too. One JSON line per reading.
 """
