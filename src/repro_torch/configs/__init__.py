@@ -1,6 +1,7 @@
 """Architecture registry of the port.
 
-The port registers all ten architectures of the JAX package: the dense
+The port registers all ten architectures of the JAX package (``ARCH_IDS``)
+and presets of its own (``moonlight-16b-a3b``, latent attention): the dense
 attention stack (with or without qk-norm, tied or untied head, sliding
 window), the mixture-of-experts FFN on it, the xLSTM stack (mLSTM +
 sLSTM), the Mamba-2 + attention hybrid (jamba) and the two modality
@@ -40,13 +41,20 @@ _ARCH_MODULES = {
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
+# presets of the port alone, with no twin in the JAX package: get_config
+# finds them, ARCH_IDS (the architectures both packages hold) leaves them out
+_PORT_MODULES = {
+    "moonlight-16b-a3b": "moonlight_16b_a3b",
+}
+
 
 def get_config(name: str) -> ModelConfig:
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
-    if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
-    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
+    module = _ARCH_MODULES.get(name) or _PORT_MODULES.get(name)
+    if module is None:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted({**_ARCH_MODULES, **_PORT_MODULES})}")
+    mod = importlib.import_module(f"repro_torch.configs.{module}")
     cfg: ModelConfig = mod.CONFIG
     cfg.validate()
     return cfg

@@ -60,6 +60,25 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     moe_eval_capacity_factor: float = 2.0  # inference: fewer/no drops
     moe_group_size: int = 2048  # GShard-style dispatch group (sequence chunks)
+    # DeepSeek-V3-style MoE (the defaults keep the softmax, capacity-bounded
+    # path above): leading layers with a dense FFN of ``d_ff``, shared
+    # experts (one SwiGLU of their total width) beside the routed ones, and
+    # ``moe_dropless``: DeepSeek-V3 routing without capacity or dispatch
+    # groups (sigmoid scores, a per-expert correction bias in the selection
+    # but not in the gates, the gates renormalised and times ``routed_scale``)
+    first_dense_layers: int = 0
+    shared_d_ff: int = 0  # 0 → no shared experts
+    routed_scale: float = 1.0  # dropless only
+    moe_dropless: bool = False
+
+    # --- multi-head latent attention (MLA, DeepSeek-V2/V3) -------------------
+    # kv_lora_rank > 0: k and v come from a normed latent of that width,
+    # cached with one shared RoPE key of qk_rope_head_dim per token; q and k
+    # heads are qk_nope_head_dim + qk_rope_head_dim wide, v heads v_head_dim
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
     # --- hybrid / SSM block pattern ----------------------------------------
     attn_every: int = 1  # 1 → every layer is attention; k → attn at i%k==attn_offset
@@ -104,7 +123,7 @@ class ModelConfig:
         return "attn"
 
     def layer_is_moe(self, i: int) -> bool:
-        if not self.num_experts:
+        if not self.num_experts or i < self.first_dense_layers:
             return False
         return i % self.moe_every == self.moe_every - 1
 
@@ -183,6 +202,11 @@ class ModelConfig:
 
 
 def _attn_params(cfg: ModelConfig) -> int:
+    if cfg.kv_lora_rank:  # MLA: wq, wkv_a, kv_norm, wkv_b, wo
+        h, r = cfg.num_heads, cfg.kv_lora_rank
+        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        return (cfg.d_model * h * qk + cfg.d_model * (r + cfg.qk_rope_head_dim) + r
+                + r * h * (cfg.qk_nope_head_dim + cfg.v_head_dim) + h * cfg.v_head_dim * cfg.d_model)
     hd = cfg.head_dim_
     q = cfg.d_model * cfg.num_heads * hd
     kv = 2 * cfg.d_model * cfg.num_kv_heads * hd
@@ -244,6 +268,8 @@ def _count_params(cfg: ModelConfig, active_only: bool) -> int:
                 e = cfg.experts_per_token if active_only else cfg.num_experts
                 total += e * _ffn_params(cfg, cfg.ffn_dim)
                 total += cfg.d_model * cfg.num_experts  # router
+                total += cfg.num_experts if cfg.moe_dropless else 0  # correction bias
+                total += _ffn_params(cfg, cfg.shared_d_ff)
             elif cfg.d_ff:
                 total += _ffn_params(cfg, cfg.d_ff)
     return total

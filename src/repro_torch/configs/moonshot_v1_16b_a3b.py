@@ -1,7 +1,12 @@
-"""moonshot-v1-16b-a3b — fine-grained MoE (kimi/moonlight), 64e top-6.
+"""moonshot-v1-16b-a3b — a stand-in fine-grained MoE, 64e top-6.
 
-[hf:moonshotai/Moonlight-16B-A3B; hf]  48L d_model=2048 16H (GQA kv=16 → MHA)
-per-expert d_ff=1408 vocab=163840.
+Moonlight-16B-A3B's expert and vocabulary widths (per-expert d_ff=1408,
+vocab=163840, d_model=2048, 16 heads) on the JAX package's MoE block: 48
+layers of full multi-head attention (GQA kv=16), softmax top-6 routing with
+capacity drops, no shared experts and no dense first layer. It is not
+Moonlight: the real model (latent attention, 27 layers, sigmoid routing,
+shared experts) is the port's ``moonlight-16b-a3b``. This preset is kept as
+it is for the tests that hold the port to the JAX package.
 """
 
 from repro_torch.configs.base import ModelConfig

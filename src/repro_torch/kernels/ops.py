@@ -3,6 +3,8 @@
   flash_attention(q, k, v, ...)     — (B, Sq, H, D) × (B, Sk, KH, D) → (B, Sq, H, D)   (K2)
   decode_attention(q, k, v, valid)  — (B, H, D) one token vs the (B, S, KH, D) cache  (K1)
   combine_decode_partials(...)      — logsumexp combine of K1 partials from shards
+  latent_decode_attention(...)      — one token of absorbed MLA vs the latent cache
+                                      (plain torch on both devices, no kernel yet)
   ssm_scan(x, loga, b, c, chunk)    — chunked SSD scan, (B, S, H, P) → y, final h (K3)
 
 A wrapper runs its kernel's plain PyTorch version for tensors on the CPU
@@ -226,6 +228,39 @@ def decode_attention(
     if return_partials:
         return out, m, l
     return out.to(q.dtype)
+
+
+NEG_INF = -1e30
+
+
+def _bmm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` batched, products of the inputs' dtype summed and returned
+    in fp32: cuBLAS's fp32 output on the card, the inputs widened (exactly)
+    on the CPU, which has no such output."""
+    if a.dtype == torch.float32 or a.device.type == "cpu":
+        return torch.bmm(a.float(), b.float())
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def latent_decode_attention(q_lat, q_pe, c_kv, k_pe, valid, softmax_scale: float) -> torch.Tensor:
+    """One query token of absorbed multi-head latent attention against the
+    latent cache. q_lat (B, H, R): each head's no-RoPE query folded through
+    its key projection onto the latent; q_pe (B, H, P): its RoPE part;
+    c_kv (B, S, R), k_pe (B, S, P): the cache's latent and shared RoPE key;
+    valid (B, S). Returns the fp32 softmax-weighted latent (B, H, R).
+
+    Contract as K1's: scores summed in fp32, softmax in fp32 over the valid
+    keys, masked probabilities exact zeros, so a row with no valid key gives
+    0. Plain cuBLAS ``bmm`` calls and elementwise passes on both devices
+    (the probabilities rounded to the cache's dtype for the read-out, as K2
+    rounds them): no host sync and no shape that depends on the data, so a
+    captured decode step replays it."""
+    s = (_bmm32(q_lat, c_kv.transpose(1, 2)) + _bmm32(q_pe, k_pe.transpose(1, 2))) * softmax_scale
+    ok = valid.bool()[:, None, :]
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.where(ok, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    out = _bmm32(p.to(c_kv.dtype), c_kv)
+    return out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
 
 
 def combine_decode_partials(outs, ms, ls):

@@ -47,6 +47,17 @@ capacity holds only for a prefill that batches several prompts into one
 group, which neither serve runs. A prompt longer than the group must be a
 multiple of it, as in the JAX package.
 
+**Latent attention** (``moonlight-16b-a3b``, MLA): the arena holds each
+slot's latent and RoPE key (``c_kv``, ``k_pe``; 576 values a token and
+layer, 31,104 B a token in bf16 over its 27 layers) in place of ``k`` and
+``v``; admitting, slot writes and the captured step carry them as they
+carry any cache tensor, so the absorbed decode replays inside the graph.
+Its dropless experts route every row alone, so a parked slot changes no
+active row's experts either. ``stats()`` reports the prefills' routed
+(token, slot) pairs and the sum over prefills and layers of the most that
+one expert took (``moe_pairs``, ``moe_max_expert_pairs``), counted on the
+device and read only there.
+
 On the card the kernel path is the default (``main()`` selects
 ``attention_impl="pallas"``, K2, for prefill and
 ``decode_attention_impl="kernel"``, K1, for decode; the mLSTM and Mamba-2
@@ -297,7 +308,9 @@ class ServeLoop:
 
     def prefill(self, toks: torch.Tensor):
         self._prefills += 1
-        return M.prefill(self.cfg, self.run, self.params, toks, self.max_len)
+        if self._moe_load is None and self.cfg.moe_dropless:
+            self._moe_load = torch.zeros(2, dtype=torch.long, device=self.device)
+        return M.prefill(self.cfg, self.run, self.params, toks, self.max_len, moe_load=self._moe_load)
 
     def decode(self, cache, toks: torch.Tensor):
         return M.decode_step(self.cfg, self.run, self.params, cache, toks)
@@ -411,6 +424,10 @@ class ServeLoop:
         self._decode_tokens = 0
         self._decode_calls = 0
         self._prefills = 0
+        # a dropless MoE's routed (token, slot) pairs and the most one expert
+        # took, summed over the session's prefills and layers on the device
+        # (made by the first prefill that routes so)
+        self._moe_load = None
         self._cancelled = 0
         self._offered = 0
         # measured decode throughput (tokens/s), EMA over per-step rates
@@ -610,7 +627,7 @@ class ServeLoop:
             self._slot_rid[s] = r.rid
             self._prefill_skipped += 1
             return
-        span = spans.begin("serve.prefill") if spans.on else -1
+        span = spans.begin("serve.prefill", device=True) if spans.on else -1
         logits, cache = self.prefill(self._tokens(r.prompt[None]))
         if span >= 0:
             span = spans.then(span, "serve.first_token")
@@ -807,6 +824,8 @@ class ServeLoop:
         wall = time.perf_counter() - self._t0
         done = [r for r in self._requests if r.finished >= 0]
         policy = self._policy
+        # read from the device here only: nothing on the serving path waits for it
+        moe_pairs, moe_max = self._moe_load.tolist() if self._moe_load is not None else (0, 0)
         return {
             "completed": len(done),
             "rejected": len(self._rejected),
@@ -819,6 +838,10 @@ class ServeLoop:
             # decode calls that replayed the captured step
             "decode_graph_replays": self._graph_replays,
             "prefill_calls": self._prefills,
+            # dropless MoE routing over the prefills: (token, slot) pairs, and
+            # the sum over prefills and layers of the most one expert took
+            "moe_pairs": moe_pairs,
+            "moe_max_expert_pairs": moe_max,
             # mean fraction of the batch doing useful work per call
             "slot_occupancy": (
                 self._occ_sum / (self._decode_calls * self.batch)

@@ -29,6 +29,23 @@ through the wrapper's DTensor path (the sequence whole).
 pads the head count with zero heads (function-preserving) so that it
 divides the mesh axis; it only helps sharding, so the port pads with
 rules only.
+
+**Multi-head latent attention** (MLA, DeepSeek-V2/V3; ``kv_lora_rank >
+0``, the port's own: the JAX package has none) projects each token to a
+latent ``c_kv`` of ``kv_lora_rank`` (RMS-normed) and one RoPE key ``k_pe``
+of ``qk_rope_head_dim`` shared by the heads; the cache holds only those
+two (``{"c_kv", "k_pe"}`` in place of ``k``/``v``). A prefill
+(:func:`mla_apply_full`) expands the latent into each head's no-RoPE key
+and value (``wkv_b``) and runs the full-sequence attention on q and k of
+``qk_nope + qk_rope`` and v of ``v_head_dim``, all zero-padded to the
+nearest width K2 takes (256 at Moonlight's 192 and 128) and the output cut
+back; the scale stays that of the unpadded q·k. A decode step
+(:func:`mla_apply_step`) absorbs instead: each head's no-RoPE query is
+folded through ``wkv_b``'s key half onto the latent, the scores are taken
+over the cached latent and RoPE keys
+(``kernels/ops.py::latent_decode_attention``), and the weighted latent goes
+through ``wkv_b``'s value half and ``wo``. No sharded path: with ``rules``
+it raises.
 """
 
 from __future__ import annotations
@@ -60,6 +77,8 @@ _REPLICATE = Replicate()
 
 
 def attn_defs(cfg: ModelConfig) -> dict:
+    if cfg.kv_lora_rank:
+        return mla_defs(cfg)
     hd = cfg.head_dim_
     defs = {
         "wq": ParamDef((cfg.d_model, cfg.num_heads, hd), ("fsdp", "tp", None), nrm()),
@@ -263,13 +282,18 @@ def attn_apply_full(cfg: ModelConfig, run: RunConfig, params: dict, x, positions
     """Training / prefill attention over the full sequence.
 
     x: (B, S, D) post-norm residual input; positions: (S,) or (B, S).
+    With ``return_kv`` also the cache's entries of these positions,
+    ``{"k", "v"}`` (``{"c_kv", "k_pe"}`` under MLA), for
+    :func:`attn_fill_cache`.
     """
+    if cfg.kv_lora_rank:
+        return mla_apply_full(cfg, run, params, x, positions, return_kv, rules)
     q, k, v = _project_qkv(cfg, params, x, positions, rules)
     out = multihead_attention(run, q, k, v, q_offset=0, window=cfg.sliding_window, rules=rules)
     out = shard_constraint(out, rules, ("batch", None, "tp", None))
     y = _out_proj(cfg, params, out)
     if return_kv:
-        return y, (k, v)
+        return y, {"k": k, "v": v}
     return y
 
 
@@ -279,16 +303,22 @@ def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
 
 def attn_cache_layout(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """``(shape, dtype, fill)`` of one layer's ``k`` and ``v``: (B, cap, KH,
-    hd) in the compute dtype, zero."""
-    entry = ((batch, cache_capacity(cfg, max_len), cfg.num_kv_heads, cfg.head_dim_),
-             getattr(torch, cfg.compute_dtype), 0)
+    hd) in the compute dtype, zero. Under MLA its ``c_kv`` (B, cap,
+    kv_lora_rank) and ``k_pe`` (B, cap, qk_rope_head_dim)."""
+    dt, cap = getattr(torch, cfg.compute_dtype), cache_capacity(cfg, max_len)
+    if cfg.kv_lora_rank:
+        return {"c_kv": ((batch, cap, cfg.kv_lora_rank), dt, 0), "k_pe": ((batch, cap, cfg.qk_rope_head_dim), dt, 0)}
+    entry = ((batch, cap, cfg.num_kv_heads, cfg.head_dim_), dt, 0)
     return {"k": entry, "v": entry}
 
 
-def attn_cache_axes() -> dict:
+def attn_cache_axes(cfg: ModelConfig) -> dict:
     """Logical axes of one layer's ``k`` and ``v`` (B, cap, KH, hd): the
     cache sequence shards over ``model`` (sequence-sharded flash-decode,
-    ``parallel/flash_decode.py``)."""
+    ``parallel/flash_decode.py``). Under MLA those of ``c_kv`` and
+    ``k_pe``."""
+    if cfg.kv_lora_rank:
+        return {"c_kv": ("batch", "kv_seq", None), "k_pe": ("batch", "kv_seq", None)}
     return {
         "k": ("batch", "kv_seq", None, None),
         "v": ("batch", "kv_seq", None, None),
@@ -324,16 +354,17 @@ def _local_rows(dst, t):
     return t.redistribute(dst.device_mesh, pls).to_local()
 
 
-def attn_fill_cache(cfg: ModelConfig, cache: dict, k, v) -> dict:
-    """Write prefill K/V (B, S, KH, D) into a fresh cache, in place (ring-aware).
+def attn_fill_cache(cfg: ModelConfig, cache: dict, new: dict) -> dict:
+    """Write a prefill's cache entries ``new`` (each (B, S, ...): ``k`` and
+    ``v``, or MLA's ``c_kv`` and ``k_pe``) into the fresh layer cache of the
+    same keys, in place (ring-aware).
 
     A DTensor cache (laid out by ``attn_cache_axes``) is written shard by
     shard: each rank gathers the heads of its batch rows and copies the
     positions its sequence shard holds."""
-    cap = cache["k"].shape[1]
-    s = k.shape[1]
-    for name, t in (("k", k), ("v", v)):
+    for name, t in new.items():
         dst = cache[name]
+        cap, s = dst.shape[1], t.shape[1]
         rows = _local_rows(dst, t)
         local = dst.to_local() if is_dtensor(dst) else dst
         _, _, start, length = _local_rows_slots(dst)
@@ -362,7 +393,8 @@ def _write_step(dst, new, slot, active) -> None:
         own &= active[b0:b0 + nb]
     at = at.clamp(0, ns - 1)
     rows = torch.arange(nb, device=local.device)
-    local[rows, at] = torch.where(own[:, None, None], new.to(local.dtype), local[rows, at])
+    own = own.view(-1, *(1,) * (new.dim() - 1))
+    local[rows, at] = torch.where(own, new.to(local.dtype), local[rows, at])
 
 
 def _valid_mask(cfg: ModelConfig, like, slot, pos, active):
@@ -415,6 +447,8 @@ def attn_apply_step(
     einsum path over a sharded sequence takes the jnp partials, which keep
     the reference's uniform spread over an all-invalid row (C3).
     """
+    if cfg.kv_lora_rank:
+        return mla_apply_step(cfg, params, cache, x, pos, active, rules)
     dt = getattr(torch, cfg.compute_dtype)
     cache_k, cache_v = cache["k"], cache["v"]
     sharded = rules is not None and is_dtensor(cache_k)
@@ -457,3 +491,108 @@ def attn_apply_step(
         out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cache_v.float())
         out = out.reshape(q.shape).to(dt)
     return _out_proj(cfg, params, out)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (MLA)
+# ---------------------------------------------------------------------------
+
+
+def mla_defs(cfg: ModelConfig) -> dict:
+    """MLA's weights: ``wq`` (D, H, nope + rope), ``wkv_a`` (D, R + rope):
+    the latent and the shared RoPE key, ``kv_norm`` (R,), ``wkv_b`` (R, H,
+    nope + v): each head's no-RoPE key then its value, ``wo`` (H, v, D)."""
+    h, r = cfg.num_heads, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": ParamDef((cfg.d_model, h, nope + rope), ("fsdp", "tp", None), nrm()),
+        "wkv_a": ParamDef((cfg.d_model, r + rope), ("fsdp", None), nrm()),
+        "kv_norm": norm_def(r),
+        "wkv_b": ParamDef((r, h, nope + vd), (None, "tp", None), nrm()),
+        "wo": ParamDef((h, vd, cfg.d_model), ("tp", None, "fsdp"), nrm(fan_in_axis=2)),
+    }
+
+
+def _mla_project(cfg: ModelConfig, params, x, positions):
+    """x (B, S, D) → q_nope (B, S, H, nope), q_pe (B, S, H, rope) rotated,
+    c_kv (B, S, R) normed, k_pe (B, S, rope) rotated."""
+    dt = getattr(torch, cfg.compute_dtype)
+    b, s, _ = x.shape
+    nope, r = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    q = (x @ params["wq"].to(dt).flatten(1)).view(b, s, cfg.num_heads, -1)
+    q_pe = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    kv = x @ params["wkv_a"].to(dt)
+    c_kv = rms_norm(kv[..., :r], params["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(kv[..., None, r:], positions, cfg.rope_theta)[..., 0, :]
+    return q[..., :nope], q_pe, c_kv, k_pe
+
+
+def _mla_out(cfg: ModelConfig, params, out):
+    """The heads' values (B, S, H, v) through ``wo``."""
+    dt = getattr(torch, cfg.compute_dtype)
+    return out.flatten(2) @ params["wo"].to(dt).flatten(0, 1)
+
+
+K2_WIDTHS = (64, 128, 256)  # the head widths K2 is built for
+
+
+def mla_apply_full(cfg: ModelConfig, run: RunConfig, params: dict, x, positions, return_kv: bool = False,
+                   rules: Optional[ShardingRules] = None):
+    """MLA over the full sequence, not absorbed: every head's key and value
+    expanded from the latent. Returns y (B, S, D), and with ``return_kv``
+    the cache's ``{"c_kv", "k_pe"}`` of these positions."""
+    if rules is not None:
+        raise NotImplementedError("multi-head latent attention has no sharded path")
+    dt = getattr(torch, cfg.compute_dtype)
+    b, s, _ = x.shape
+    h, nope, vd = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    q_nope, q_pe, c_kv, k_pe = _mla_project(cfg, params, x, positions)
+    kv = (c_kv @ params["wkv_b"].to(dt).flatten(1)).view(b, s, h, nope + vd)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([kv[..., :nope], k_pe[:, :, None].expand(b, s, h, -1)], dim=-1)
+    # q, k and v zero-padded to one width K2 takes: the pad adds nothing to
+    # q·k and gives output columns that are cut off
+    qk = q.shape[-1]
+    width = next(w for w in K2_WIDTHS if w >= max(qk, vd))
+    q, k, v = (F.pad(t, (0, width - t.shape[-1])) for t in (q, k, kv[..., nope:]))
+    scale = qk ** -0.5
+    impl = run.attention_impl
+    if impl == "pallas":
+        out = ops.flash_attention(q, k, v, softmax_scale=scale)
+    elif impl == "xla":
+        out = _xla_attention(q, k, v, q_offset=0, window=0, scale=scale)
+    elif impl == "chunked":
+        out = _chunked_attention(q, k, v, q_offset=0, window=0, scale=scale, q_chunk=run.attention_chunk,
+                                 kv_chunk=run.attention_chunk)
+    else:
+        raise ValueError(f"unknown attention_impl {impl!r} (the port has xla, chunked, pallas)")
+    y = _mla_out(cfg, params, out[..., :vd])
+    if return_kv:
+        return y, {"c_kv": c_kv, "k_pe": k_pe}
+    return y
+
+
+def mla_apply_step(cfg: ModelConfig, params: dict, cache: dict, x, pos, active: Optional[torch.Tensor] = None,
+                   rules: Optional[ShardingRules] = None):
+    """One decode token of MLA, absorbed. x (B, 1, D); pos (B,); ``cache``
+    the layer's ``{"c_kv" (B, cap, R), "k_pe" (B, cap, rope)}``, written in
+    place at each active row's slot (a parked row writes its slot's old
+    value back and attends to no key). Returns (B, 1, D)."""
+    if rules is not None:
+        raise NotImplementedError("multi-head latent attention has no sharded path")
+    dt = getattr(torch, cfg.compute_dtype)
+    nope = cfg.qk_nope_head_dim
+    q_nope, q_pe, c_kv, k_pe = _mla_project(cfg, params, x, pos[:, None])
+    cap = cache["c_kv"].shape[1]
+    slot = pos.clamp_max(cap - 1)
+    _write_step(cache["c_kv"], c_kv[:, 0], slot, active)
+    _write_step(cache["k_pe"], k_pe[:, 0], slot, active)
+    valid = _valid_mask(cfg, cache["c_kv"], slot, pos, active)
+    wkv_b = params["wkv_b"].to(dt)  # (R, H, nope + v)
+    # each head's query folded onto the latent: q_nope · W_k^T, (H, B, R)
+    q_lat = torch.bmm(q_nope[:, 0].transpose(0, 1), wkv_b[..., :nope].permute(1, 2, 0)).transpose(0, 1)
+    lat = ops.latent_decode_attention(q_lat, q_pe[:, 0], cache["c_kv"], cache["k_pe"], valid,
+                                      softmax_scale=(nope + cfg.qk_rope_head_dim) ** -0.5)
+    # the weighted latent through each head's value projection: (H, B, v)
+    out = torch.bmm(lat.to(dt).transpose(0, 1), wkv_b[..., nope:].transpose(0, 1)).transpose(0, 1)
+    return _mla_out(cfg, params, out[:, None])

@@ -20,6 +20,8 @@ its own layers with batch on dim 1, so a serving slot is one
 ``index_copy_`` on dim 1 of every tensor:
 
 * attention: ``{"pos": (B,) int64, "k": (L, B, cap, KH, hd), "v": ...}``;
+  under latent attention (MLA) ``{"pos", "c_kv": (L, B, cap, kv_lora_rank),
+  "k_pe": (L, B, cap, qk_rope_head_dim)}``;
 * xLSTM: ``{"pos", "mlstm": (L_m, B, H, hd, hd + 1) fp32, "slstm": {"h",
   "c", "n", "m"}: (L_s, B, d)}`` (``h`` in the compute dtype, the rest
   fp32, ``m`` starting at -1e30);
@@ -184,12 +186,13 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def _ffn(cfg, blk, h, inference: bool, rules: Optional[ShardingRules] = None):
+def _ffn(cfg, blk, h, inference: bool, rules: Optional[ShardingRules] = None,
+         moe_load: Optional[torch.Tensor] = None):
     """The block's FFN, dense or MoE, on the residual ``h``. Returns ``(h,
     aux)``: the MoE metrics, or ``{}`` where the block has no MoE."""
     if "moe" in blk:
         hn = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
-        y, aux = moe_lib.moe_apply(cfg, blk["moe"], hn, inference=inference, rules=rules)
+        y, aux = moe_lib.moe_apply(cfg, blk["moe"], hn, inference=inference, rules=rules, load=moe_load)
         return h + y, aux
     if "ffn" in blk:
         hn = gather_sequence(rms_norm(h, blk["ffn_norm"], cfg.norm_eps), rules)
@@ -311,10 +314,13 @@ def forward(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor
 
 
 def prefill(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor, max_len: int,
-            prefix_features: Optional[torch.Tensor] = None, rules: Optional[ShardingRules] = None):
+            prefix_features: Optional[torch.Tensor] = None, rules: Optional[ShardingRules] = None,
+            moe_load: Optional[torch.Tensor] = None):
     """Forward + cache build, the frontend's ``prefix_features`` before the
     tokens where given (the cache then holds P + S positions). Returns
-    (last-position logits (B, 1, V), cache).
+    (last-position logits (B, 1, V), cache). ``moe_load``, a (2,) int64
+    tensor on the device, gains each dropless MoE layer's routed (token,
+    slot) pairs and the most that one expert took (``models/moe.py``).
 
     With ``rules``, params and tokens are DTensors, the activations are
     laid out at the training forward's sites and the cache is built as
@@ -346,9 +352,12 @@ def prefill(cfg: ModelConfig, run: RunConfig, params: dict, tokens: torch.Tensor
                 h, _ = _ffn(cfg, blk, h + y, inference=True, rules=rules)
             else:
                 hn = rms_norm(h, blk["norm"], cfg.norm_eps)
-                y, (k, v) = attn.attn_apply_full(cfg, run, blk["attn"], hn, positions, return_kv=True, rules=rules)
-                attn.attn_fill_cache(cfg, {"k": cache["k"][j], "v": cache["v"][j]}, k, v)
-                h, _ = _ffn(cfg, blk, h + y, inference=True, rules=rules)
+                span = spans.begin("attn.mla", device=True) if spans.on and cfg.kv_lora_rank else -1
+                y, new = attn.attn_apply_full(cfg, run, blk["attn"], hn, positions, return_kv=True, rules=rules)
+                if span >= 0:
+                    spans.end(span)
+                attn.attn_fill_cache(cfg, {name: cache[name][j] for name in new}, new)
+                h, _ = _ffn(cfg, blk, h + y, inference=True, rules=rules, moe_load=moe_load)
             h = shard_constraint(h, rules, ("batch", "sp", None))
         return _head(cfg, params, gather_sequence(h, rules)[:, -1:], rules), cache
 
@@ -416,7 +425,7 @@ def decode_step(
                     spans.end(span)
             else:
                 hn = rms_norm(h, blk["norm"], cfg.norm_eps)
-                layer_cache = {"k": cache["k"][j], "v": cache["v"][j]}
+                layer_cache = {name: cache[name][j] for name in attn.attn_cache_axes(cfg)}
                 span = spans.begin("model.attn") if spans.on else -1
                 h = h + attn.attn_apply_step(cfg, run, blk["attn"], layer_cache, hn, pos, active, rules)
                 if span >= 0:
@@ -435,11 +444,11 @@ def decode_step(
     return logits, cache
 
 
-def _block_cache_axes(kind: str) -> dict:
+def _block_cache_axes(cfg: ModelConfig, kind: str) -> dict:
     """Logical axes of one layer's cache entries of ``kind``, keyed as the
     port's cache keys them."""
     if kind == "attn":
-        return attn.attn_cache_axes()
+        return attn.attn_cache_axes(cfg)
     return {kind: getattr(ssm, f"{kind}_cache_axes")()}
 
 
@@ -468,7 +477,7 @@ def cache_specs(cfg: ModelConfig, rules: Optional[ShardingRules], batch: int, ma
     layout = _cache_layout(cfg, batch, max_len)
     out = {"pos": PartitionSpec()}
     for kind in _kind_counts(cfg):
-        axes = _block_cache_axes(kind)
+        axes = _block_cache_axes(cfg, kind)
         out.update(_spec_tree({k: layout[k] for k in axes}, axes, rules))
     return out
 

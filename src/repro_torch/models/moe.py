@@ -40,6 +40,24 @@ them. ``moe_aux`` is averaged over the data ranks (equal groups: the
 whole path's mean) and the kept pairs summed. A batch that no DP axis
 divides stays whole on every rank and is routed whole, as the reference
 routes it.
+
+**Dropless, DeepSeek-V3-style** (``moe_dropless``; the port's own, for
+``moonlight-16b-a3b``): no groups and no capacity. The router's scores are
+the sigmoid of an fp32 product; the ``k`` experts are chosen on the scores
+plus a per-expert correction bias (the parameter ``bias``), the gates are
+the chosen scores without it, renormalised and times ``routed_scale``. The (token, slot) pairs are
+sorted by expert (stable: a token's pairs keep their order), the experts'
+offsets into the sorted rows found on the device (``searchsorted``), and
+each projection runs as one grouped product over the experts' runs of
+rows (``torch._grouped_mm``; an expert with no rows takes none). The
+outputs go back to their pairs and are summed by their gates in fp32. No
+shape depends on the data and nothing waits for the device, so a decode
+step that routes this way replays as a CUDA graph. ``shared_d_ff`` adds
+the shared experts, one SwiGLU every token goes through. Spans (when
+``repro_torch.spans`` records): ``moe.apply`` around each such layer (with
+CUDA events on the card), its children ``moe.route``, ``moe.experts`` and
+``moe.shared``. With a ``load`` tensor, each call adds its pairs and the
+most that one expert took, on the device.
 """
 
 from __future__ import annotations
@@ -49,8 +67,9 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamDef, nrm
+from repro_torch.models.common import ParamDef, mlp_apply, mlp_defs, nrm, zeros_init
 from repro_torch.parallel.sharding import (
     ShardingRules,
     gather_over,
@@ -64,12 +83,17 @@ from repro_torch.parallel.sharding import (
 
 def moe_defs(cfg: ModelConfig) -> dict:
     e, d, f = cfg.num_experts, cfg.d_model, cfg.ffn_dim
-    return {
+    defs = {
         "router": ParamDef((d, e), ("fsdp", None), nrm()),
         "gate": ParamDef((e, d, f), ("expert", "fsdp", None), nrm(fan_in_axis=1)),
         "up": ParamDef((e, d, f), ("expert", "fsdp", None), nrm(fan_in_axis=1)),
         "down": ParamDef((e, f, d), ("expert", None, "fsdp"), nrm(fan_in_axis=1)),
     }
+    if cfg.moe_dropless:
+        defs["bias"] = ParamDef((e,), (None,), zeros_init)
+    if cfg.shared_d_ff:
+        defs["shared"] = mlp_defs(d, cfg.shared_d_ff)
+    return defs
 
 
 def resolve_moe_axes(cfg: ModelConfig, rules: Optional[ShardingRules]) -> bool:
@@ -167,18 +191,77 @@ def _aux(r: Routing, g: int) -> torch.Tensor:
     return r.probs.shape[-1] * (f_e * r.probs.mean(1)).sum(-1).mean()
 
 
+def _gates(cfg: ModelConfig, params: dict, x: torch.Tensor):
+    """Dropless routing of the tokens x (T, D): ``(gates (T, k) fp32,
+    experts (T, k) int64)``, the lower expert index first among equal
+    selection scores."""
+    scores = torch.sigmoid(x.float() @ params["router"].float())
+    choice = scores + params["bias"].float()
+    top_i = torch.sort(choice, dim=-1, descending=True, stable=True)[1][:, :cfg.experts_per_token]
+    top_w = scores.gather(-1, top_i)
+    return top_w / (top_w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scale, top_i
+
+
+def _grouped_experts(w: dict, xs: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts on the pairs' rows xs (P, D), sorted by expert,
+    expert e's rows ending at ``offs[e]``: one grouped product per
+    projection, the weights cast to xs's dtype."""
+    dt = xs.dtype
+    h = F.silu(torch._grouped_mm(xs, w["gate"].to(dt), offs=offs)) * torch._grouped_mm(xs, w["up"].to(dt), offs=offs)
+    return torch._grouped_mm(h, w["down"].to(dt), offs=offs)
+
+
+def _moe_dropless(cfg: ModelConfig, params: dict, x: torch.Tensor, load: Optional[torch.Tensor]):
+    """:func:`moe_apply` without capacity (see the module docstring): x (T,
+    D) -> y (T, D)."""
+    t, d = x.shape
+    k, e = cfg.experts_per_token, cfg.num_experts
+    child = spans.begin("moe.route") if spans.on else -1
+    gates, top_i = _gates(cfg, params, x)
+    experts, order = torch.sort(top_i.reshape(-1), stable=True)
+    offs = torch.searchsorted(experts, torch.arange(e, device=x.device), right=True).to(torch.int32)
+    if load is not None:  # the pairs, and the most that one expert took
+        counts = torch.diff(offs, prepend=offs.new_zeros(1))
+        load.add_(torch.stack([counts.sum(), counts.max()]).to(load.dtype))
+    if child >= 0:
+        child = spans.then(child, "moe.experts")
+    ys = _grouped_experts(params, x[order // k], offs)
+    # each output back at its pair, then the pairs of a token summed by their gates
+    ys = torch.empty_like(ys).index_copy_(0, order, ys).view(t, k, d)
+    y = (ys.float() * gates[..., None]).sum(1).to(x.dtype)
+    if "shared" in params:
+        if child >= 0:
+            child = spans.then(child, "moe.shared")
+        y = y + mlp_apply(params["shared"], x, x.dtype)
+    if child >= 0:
+        spans.end(child)
+    return y
+
+
 def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, inference: bool = False,
-              rules: Optional[ShardingRules] = None):
+              rules: Optional[ShardingRules] = None, load: Optional[torch.Tensor] = None):
     """x (B, S, D) -> (y (B, S, D), {"moe_aux", "moe_drop_frac"}). S must be
     at most ``moe_group_size`` or a multiple of it (the JAX package asserts
-    the same; neither pads).
+    the same; neither pads), except under ``moe_dropless``.
 
     ``moe_aux`` is the GShard load-balance loss ``E * sum_e f_e * p_e``
     (``f_e`` the share of slots routed to e before the drop, ``p_e`` the
     mean router probability), per group and averaged; ``moe_drop_frac``
-    the share of (token, slot) pairs dropped.
+    the share of (token, slot) pairs dropped. Dropless, both are 0: the
+    correction bias balances the load in place of a loss, and no pair is
+    dropped. ``load`` (a (2,) int64 tensor) gains the dropless routing's
+    pairs and the most that one expert took.
     """
     b, s, d = x.shape
+    if cfg.moe_dropless:
+        if rules is not None:
+            raise NotImplementedError("dropless MoE has no sharded path")
+        span = spans.begin("moe.apply", device=True) if spans.on else -1
+        y = _moe_dropless(cfg, params, x.reshape(b * s, d), load).view(b, s, d)
+        if span >= 0:
+            spans.end(span)
+        zero = torch.zeros((), device=x.device)
+        return y, {"moe_aux": zero, "moe_drop_frac": zero}
     g = min(cfg.moe_group_size, s)
     if s % g:
         raise ValueError(f"moe_apply: sequence {s} is not a multiple of the dispatch group {g}")

@@ -13,7 +13,9 @@ Stamps are ``time.time_ns()``: the host's real-time clock, in which
 ``torch.profiler`` stamps its events, so a span and a profiler event (a
 host call, a kernel on the device) compare directly. With
 ``enable(device_events=True)`` the sites that ask for it (the trainer's
-gradient accumulation and combine) also record a CUDA event at each end;
+gradient accumulation and combine, a serving prefill, an MLA prefill's
+``attn.mla`` and a dropless MoE layer's ``moe.apply``) also record a CUDA
+event at each end, except inside a CUDA graph's capture;
 the pair is read as seconds only by :func:`drain`, so nothing on the timed
 path waits for the device.
 
@@ -104,6 +106,14 @@ def drain() -> list[Span]:
     return out
 
 
+def _capturing() -> bool:
+    """Whether a CUDA graph is being recorded: an event recorded then would
+    be part of the graph, so a span inside a capture records none."""
+    import torch
+
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 def begin(name: str, rid: int = -1, t: Optional[int] = None, device: bool = False) -> int:
     """Open a span inside the innermost open one, stamped ``t`` (a
     ``time.time_ns()`` the caller read) or now; its index."""
@@ -117,7 +127,7 @@ def begin(name: str, rid: int = -1, t: Optional[int] = None, device: bool = Fals
         _names.append(name)
     row = _buf[i]
     row[_NAME], row[_PARENT], row[_RID], row[_END] = key, _cur, rid, -1
-    if device and _device:
+    if device and _device and not _capturing():
         import torch
 
         ea, eb = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

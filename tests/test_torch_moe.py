@@ -18,6 +18,13 @@ MoE stacks built on it, on the CPU.
   reference.
 * ``ServeLoop`` gives the same greedy tokens in arena and serial mode on
   moonshot-smoke.
+* The dropless, DeepSeek-V3-style path (``moonlight-16b-a3b``'s): sigmoid
+  ``noaux_tc`` routing equals a loop over the tokens, with a correction
+  bias that changes the choice but not the gates; the grouped dispatch
+  equals each token's sum over its experts when every token picks the same
+  expert and when some expert gets no rows; the shared experts and the
+  dense first layer are in the stack; with the new fields at their
+  defaults, ``moe_apply`` gives the capacity path's bits.
 
 The tests that need JAX skip on a machine without it.
 """
@@ -28,6 +35,7 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import RunConfig
@@ -289,3 +297,128 @@ def test_arena_streams_equal_serial_moe():
         arena = run("arena", knobs)
         assert arena == run("serial", knobs)
         assert all(len(t) == 8 for t in arena)
+
+
+# ---------------------------------------------------------------------------
+# Dropless, DeepSeek-V3-style MoE (the port's own; no JAX twin)
+# ---------------------------------------------------------------------------
+
+DROPLESS = dict(num_layers=3, d_model=32, num_heads=4, num_kv_heads=4, head_dim=12, d_ff=48, moe_d_ff=16,
+                shared_d_ff=32, vocab_size=64, num_experts=8, experts_per_token=2, kv_lora_rank=16,
+                qk_nope_head_dim=8, qk_rope_head_dim=4, v_head_dim=8, compute_dtype="float32")
+
+
+def _dropless_cfg(**over):
+    return dataclasses.replace(get_config("moonlight-16b-a3b"), **{**DROPLESS, **over})
+
+
+def _dropless_params(cfg, seed=0, bias=0.05):
+    g = torch.Generator().manual_seed(seed)
+    p = M.init_model(cfg, g)["layers"][1]["moe"]
+    p["bias"].normal_(0.0, bias, generator=g)
+    return p
+
+
+def _per_token(cfg, p, x):
+    """The layer token by token: sigmoid scores, the top k of scores + bias
+    (ties to the lower index), gates from the scores alone, renormalised and
+    scaled; each chosen expert's SwiGLU weighed by its gate; the shared
+    experts."""
+    out = []
+    for t in x:
+        scores = torch.sigmoid(t @ p["router"])
+        order = sorted(range(cfg.num_experts), key=lambda e: (-float(scores[e] + p["bias"][e]), e))
+        chosen = order[:cfg.experts_per_token]
+        g = scores[chosen] / scores[chosen].sum() * cfg.routed_scale
+        y = sum(gi * (F.silu(t @ p["gate"][e]) * (t @ p["up"][e])) @ p["down"][e] for gi, e in zip(g, chosen))
+        sh = p["shared"]
+        out.append(y + (F.silu(t @ sh["gate"]) * (t @ sh["up"])) @ sh["down"])
+    return torch.stack(out)
+
+
+def test_sigmoid_routing_equals_a_loop_over_tokens_and_the_bias_moves_only_the_choice():
+    cfg = _dropless_cfg()
+    p = _dropless_params(cfg)
+    x = torch.randn(40, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    gates, top = moe._gates(cfg, p, x)
+    scores = torch.sigmoid(x @ p["router"])
+    for t in range(x.shape[0]):
+        want = sorted(range(cfg.num_experts), key=lambda e: (-float(scores[t, e] + p["bias"][e]), e))
+        assert top[t].tolist() == want[:cfg.experts_per_token]
+        g = scores[t, top[t]]
+        assert torch.allclose(gates[t], g / g.sum() * cfg.routed_scale, rtol=1e-6, atol=0)
+    unbiased = dict(p, bias=torch.zeros_like(p["bias"]))
+    g0, top0 = moe._gates(cfg, unbiased, x)
+    moved = (top0 != top).any(-1)
+    assert moved.any() and not moved.all()  # the bias changes some tokens' choice
+    # where it does not, the gates are the same bits: the bias is not in them
+    assert torch.equal(g0[~moved], gates[~moved])
+    y, aux = moe.moe_apply(cfg, p, x[None], inference=True)
+    assert float((y[0] - _per_token(cfg, p, x)).abs().max()) < 1e-5
+    assert float(aux["moe_drop_frac"]) == 0.0
+
+
+@pytest.mark.parametrize("case", ["one_expert_for_all", "idle_experts"])
+def test_dropless_dispatch_equals_the_per_token_sum(case):
+    cfg = _dropless_cfg()
+    p = _dropless_params(cfg, seed=3)
+    if case == "one_expert_for_all":
+        # every token's choice is the same two experts, 5 and 2: the others get no rows
+        p["router"].zero_()
+        p["bias"].zero_()
+        p["bias"][5], p["bias"][2] = 1.0, 0.5
+    else:
+        p["bias"][[0, 3, 6]] = -10.0  # three experts no token chooses
+    x = torch.randn(33, cfg.d_model, generator=torch.Generator().manual_seed(4))
+    load = torch.zeros(2, dtype=torch.long)
+    y, _ = moe.moe_apply(cfg, p, x[None], inference=True, load=load)
+    assert float((y[0] - _per_token(cfg, p, x)).abs().max()) < 1e-5
+    _, top = moe._gates(cfg, p, x)
+    counts = torch.bincount(top.reshape(-1), minlength=cfg.num_experts)
+    assert load.tolist() == [33 * cfg.experts_per_token, int(counts.max())]
+    if case == "one_expert_for_all":
+        assert top.tolist() == [[5, 2]] * 33 and load.tolist() == [66, 33]
+    else:
+        assert counts[[0, 3, 6]].tolist() == [0, 0, 0]
+
+
+def test_the_shared_experts_and_the_dense_first_layer_are_in_the_stack():
+    cfg = _dropless_cfg()
+    defs = M.model_defs(cfg)
+    assert "ffn" in defs["layers"][0] and "moe" not in defs["layers"][0]
+    assert defs["layers"][0]["ffn"]["gate"].shape == (cfg.d_model, cfg.d_ff)
+    for blk in defs["layers"][1:]:
+        assert "ffn" not in blk and blk["moe"]["shared"]["gate"].shape == (cfg.d_model, cfg.shared_d_ff)
+        assert blk["moe"]["bias"].shape == (cfg.num_experts,)
+    assert M.count_params_exact(cfg) == cfg.count_params()
+    params = M.init_model(cfg, torch.Generator().manual_seed(5))
+    toks = torch.randint(0, cfg.vocab_size, (1, 9), generator=torch.Generator().manual_seed(6))
+    run = RunConfig(attention_impl="xla", remat="none")
+    base, _ = M.forward(cfg, run, params, toks)
+    # taking out the shared experts, or the dense layer's FFN, changes the output
+    for zero in (params["layers"][1]["moe"]["shared"]["down"], params["layers"][0]["ffn"]["down"]):
+        keep = zero.clone()
+        zero.zero_()
+        assert not torch.allclose(M.forward(cfg, run, params, toks)[0], base)
+        zero.copy_(keep)
+
+
+def test_new_fields_at_their_defaults_keep_the_capacity_paths_bits():
+    """moonshot-smoke with every new field given its default value
+    explicitly: ``moe_apply`` returns the bits of the capacity path put
+    together from its parts (route, scatter into the (E, groups * C, D)
+    buffer, the experts' bmm, the gather by the gates), as it did before the
+    dropless path."""
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b").reduced(), compute_dtype="float32")
+    same = dataclasses.replace(cfg, first_dense_layers=0, shared_d_ff=0, routed_scale=1.0, moe_dropless=False,
+                               kv_lora_rank=0)
+    assert same == cfg and set(moe.moe_defs(cfg)) == {"router", "gate", "up", "down"}
+    p = M.init_model(cfg, torch.Generator().manual_seed(7))["layers"][0]["moe"]
+    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator().manual_seed(8))
+    for inference in (False, True):
+        y, aux = moe.moe_apply(cfg, p, x, inference=inference)
+        g = cfg.moe_group_size
+        want, r = moe._dispatch_combine(cfg, p["router"], x.reshape(-1, g, cfg.d_model), inference,
+                                        lambda xe: moe._experts(p, xe))
+        assert torch.equal(y, want.reshape(x.shape))
+        assert torch.equal(aux["moe_aux"], moe._aux(r, g))

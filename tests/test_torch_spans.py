@@ -10,6 +10,11 @@ tiny ``ServeLoop`` in arena mode and a tiny ``HetCoordinator`` step.
 * The coordinator's spans come in the schedule's counts.
 * The stamps share the profiler's clock: every ``aten::mm`` the profiler
   records inside a decode step lies inside a ``model.*`` span.
+* A latent-attention MoE (a cut of ``moonlight-16b-a3b``): each prefill
+  holds an ``attn.mla`` span a layer and a ``moe.apply`` span an expert
+  layer, with ``moe.route``, ``moe.experts`` and ``moe.shared`` inside it;
+  ``stats()`` counts the prefills' routed pairs and the most one expert
+  took, for a routing known in advance.
 
 The ``gpu``-marked tests check on the card that each eager decode step's
 first K1 kernel starts inside its ``serve.decode.issue`` span, and that each
@@ -292,3 +297,65 @@ def test_k1_kernels_of_a_replayed_step_run_inside_its_decode_span_on_card():
     for s in decodes:
         inside = [(a, b) for a, b in k1 if s.start_ns <= a and b <= s.end_ns]
         assert len(inside) == cfg.num_layers, (s, k1)
+
+
+MLA_CFG = dataclasses.replace(
+    get_config("moonlight-16b-a3b"), num_layers=3, d_model=32, num_heads=4, num_kv_heads=4, head_dim=12, d_ff=48,
+    moe_d_ff=16, shared_d_ff=32, vocab_size=64, num_experts=8, experts_per_token=2, kv_lora_rank=16,
+    qk_nope_head_dim=8, qk_rope_head_dim=4, v_head_dim=8, compute_dtype="float32")
+
+
+def _serve_mla(params, lens=(6, 9, 7), gen=4):
+    loop = ServeLoop(MLA_CFG, RUN, params, batch=2, max_len=24, mode="arena", warmup=False, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    reqs = [Request(i, torch.randint(0, 64, (n,), generator=g).numpy(), gen) for i, n in enumerate(lens)]
+    spans.enable()
+    loop.start(reqs)
+    while loop.tick() != "done":
+        pass
+    spans.disable()
+    return reqs, loop.stats(), spans.drain()
+
+
+def test_mla_and_moe_spans_nest_as_named():
+    params = M.init_model(MLA_CFG, torch.Generator().manual_seed(0))
+    reqs, stats, got = _serve_mla(params)
+    assert all(len(r.tokens) == r.max_new for r in reqs)
+    for s in got:
+        if s.parent >= 0:
+            assert _inside(s, got[s.parent]), (s, got[s.parent])
+    prefills = [i for i, s in enumerate(got) if s.name == "serve.prefill"]
+    assert len(prefills) == len(reqs) == stats["prefill_calls"]
+    for i in prefills:
+        # a prefill: the attention of each layer, then the expert layers' FFN (the dense layer's has no span)
+        assert [s.name for s in got if s.parent == i] == ["attn.mla", "attn.mla", "moe.apply", "attn.mla",
+                                                          "moe.apply"]
+    applies = [i for i, s in enumerate(got) if s.name == "moe.apply"]
+    # the decode steps are eager here: each has its expert layers' spans too, under model.ffn
+    assert len(applies) == 2 * (len(reqs) + stats["decode_calls"])
+    for i in applies:
+        kids = [s for s in got if s.parent == i]
+        assert [s.name for s in kids] == ["moe.route", "moe.experts", "moe.shared"]
+        assert all(a.end_ns == b.start_ns for a, b in zip(kids, kids[1:]))
+    assert not any(s.name == "attn.mla" and got[s.parent].name != "serve.prefill" for s in got)
+
+
+def test_the_stats_counter_counts_the_pairs_of_a_known_routing():
+    """Every token of every expert layer chooses experts 3 and 6 (the
+    router's product is zero and the bias decides): each prefill routes
+    its tokens times 2 pairs a layer, and experts 3 and 6 take all of a
+    layer's tokens."""
+    params = M.init_model(MLA_CFG, torch.Generator().manual_seed(1))
+    for blk in params["layers"][1:]:
+        blk["moe"]["router"].zero_()
+        blk["moe"]["bias"][[3, 6]] = 1.0
+    lens = (6, 9, 7)
+    reqs, stats, _ = _serve_mla(params, lens)
+    layers = MLA_CFG.num_layers - MLA_CFG.first_dense_layers
+    assert stats["moe_pairs"] == sum(lens) * MLA_CFG.experts_per_token * layers
+    assert stats["moe_max_expert_pairs"] == sum(lens) * layers
+    # a model without a dropless expert layer counts none
+    params = M.init_model(CFG, torch.Generator().manual_seed(0))
+    loop = ServeLoop(CFG, RUN, params, batch=2, max_len=24, mode="arena", warmup=False, device="cpu")
+    loop.run_requests(_requests(2))
+    assert (loop.stats()["moe_pairs"], loop.stats()["moe_max_expert_pairs"]) == (0, 0)
